@@ -9,7 +9,7 @@ test:
 # syntax/bytecode floor (this image ships no linter; CI runs ruff too —
 # see .github/workflows/ci.yml, the reference's clippy analog)
 lint:
-	python -m compileall -q slamrs_tpu tests bench.py __graft_entry__.py
+	python -m compileall -q slamrs_tpu tests bench.py __graft_entry__.py chip_smoke.py
 
 # the local mirror of .github/workflows/ci.yml (reference hygiene:
 # slamrs_rust.yml check+build+test+lint)

@@ -1,9 +1,9 @@
-"""slamrs_tpu — a TPU-native 2D SLAM simulation framework.
+"""slamrs_tpu — a 2D SLAM simulation framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of antbern/slamrs
 (differential-drive + lidar simulator, point-to-normal ICP scan matching,
 RBPF occupancy-grid SLAM, EKF landmark SLAM, declarative node/topic config,
-Neato robot protocol), re-designed TPU-first:
+Neato robot protocol), re-designed for accelerators:
 
 * the per-beam raycast, grid-ray DDA walk, log-odds scatter, and particle
   resampling are batched kernels over ``[worlds, particles, beams, ...]``

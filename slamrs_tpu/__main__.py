@@ -100,8 +100,8 @@ def cmd_robot(args):
     host config with a !RobotConnection node can drive it like hardware.
 
     Note: the first lidar revolution jit-compiles the scene raycast
-    (tens of seconds on a cold remote-TPU cache); frames stream at the
-    firmware cadence once warm."""
+    (seconds on a cold compile cache); frames stream at the firmware
+    cadence once warm."""
     import socket
 
     from slamrs_tpu.io.virtual_robot import VirtualRobot, VirtualRobotServer
@@ -236,6 +236,9 @@ def main(argv=None):
     b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
+    from slamrs_tpu.utils import compile_cache
+
+    compile_cache.enable()
     args.fn(args)
 
 

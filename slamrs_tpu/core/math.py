@@ -2,7 +2,7 @@
 
 Parity surface: ``slamrs/common/src/math.rs`` (Probability, LogProbability,
 LogOdds, angle_diff).  The reference wraps f64 scalars in newtypes with
-operator overloads; on TPU these become vectorized f32 transforms (the PF
+operator overloads; here these become vectorized f32 transforms (the PF
 weight accumulation that motivated f64 in the reference is done in log space
 here, which is the numerically stable representation anyway).
 """

@@ -3,7 +3,7 @@
 Parity surface: ``slamrs/common/src/robot.rs`` (Pose, Observation,
 Measurement, Odometry, Command, LandmarkObservation(s)).
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
 
 * The reference stores an observation as a ``Vec<Measurement>`` whose length
   varies with how many rays hit the scene (beams that miss are simply not

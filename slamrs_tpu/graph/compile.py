@@ -1,6 +1,6 @@
 """Graph compiler: fuse a YAML node graph into one jitted world step.
 
-This is the TPU execution path.  The host pub/sub graph
+This is the compiled execution path.  The host pub/sub graph
 (:mod:`slamrs_tpu.graph.app`) mirrors the reference's per-frame node loop;
 for throughput (rollouts, fleet datagen, benchmarking) the same declarative
 config compiles down to a single pure function
@@ -83,9 +83,9 @@ class FusedWorld:
     control_script: list  # [[until_t, left, right], ...]
     num_beams: int = 360
     # optional (world, particle) device mesh: batched fused-path SLAM
-    # updates then run the Pallas kernel under shard_map on each
-    # device's local block (parallel/shard.py); everything else stays
-    # auto-partitioned.  None = single-device (plain vmap).
+    # updates then run under shard_map on each device's local block
+    # (parallel/shard.py); everything else stays auto-partitioned.
+    # None = single-device (plain vmap).
     mesh: Any = None
 
     # ---- state ------------------------------------------------------------
@@ -161,11 +161,9 @@ class FusedWorld:
                     keys = jax.random.split(k_grid, batch[0])
                     if gcfg.integrate == "fused":
                         # update_fleet owns the batched fused policy:
-                        # HBM windows (the stacked grids array streams),
-                        # the flattened cross-world CoW resample (or the
-                        # tiled trace-time world loop), and — with a
-                        # mesh — shard_map'd kernels + the local-first
-                        # sharded resample (parallel/{shard,resample}.py)
+                        # per-world updates, and — with a mesh —
+                        # shard_map'd updates + the local-first sharded
+                        # resample (parallel/{shard,resample}.py)
                         grid, gout = gs_model.update_fleet(
                             grid, scan, odometry, keys, gcfg,
                             mesh=self.mesh)

@@ -6,7 +6,7 @@ PointMap at pointmap.rs:18, LandmarkMapMessage at landmark/node.rs).
 
 Headless-first: ``draw`` takes no GL context — nodes that visualize export
 data through the :class:`slamrs_tpu.graph.nodes.viz.VisualizerNode`
-instead (the reference's egui/OpenGL UI is host tooling, out of the TPU
+instead (the reference's egui/OpenGL UI is host tooling, out of the
 framework core; see SURVEY §7).
 """
 

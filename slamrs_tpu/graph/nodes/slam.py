@@ -65,12 +65,7 @@ class GridMapSlamNode(Node):
         self._update = jax.jit(
             lambda state, scan, odo, key: gs_model.update(
                 state, scan, odo, key, self.slam_cfg))
-        # bind the config so the fused path's 128-padded column tail is
-        # sliced off before publishing (visualizers derive the map extent
-        # from data.shape * resolution)
-        self._prob_grid = jax.jit(
-            lambda st: gs_model.estimated_probability_grid(st,
-                                                           self.slam_cfg))
+        self._prob_grid = jax.jit(gs_model.estimated_probability_grid)
 
     def update(self) -> None:
         msg = self.sub.try_recv()  # one observation per frame (node.rs:47)

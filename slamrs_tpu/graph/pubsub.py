@@ -10,7 +10,7 @@ Parity surface: ``slamrs/pubsub/src/lib.rs`` —
   values are shared by reference (the reference clones ``Arc``s) — nodes
   must treat received values as immutable;
 * :class:`Ticker` mirrors the desktop background tick thread with a waker
-  callback (lib.rs:246-293); on TPU the hot path never goes through this —
+  callback (lib.rs:246-293); the compiled hot path never goes through this —
   the graph compiler fuses algorithm nodes into one jitted step and topics
   become pytree plumbing — so the Python implementation only carries
   host-side orchestration traffic (replay, robot I/O, viz export).

@@ -25,7 +25,7 @@ false``, so the defect is latent there).  The default here is the correct
 1/q-normalized Jacobian; set ``reference_jacobian=True`` to replicate the
 reference verbatim.
 
-TPU-first design: the dynamic landmark loop becomes a ``lax.scan`` over
+Design: the dynamic landmark loop becomes a ``lax.scan`` over
 fixed observation lanes with validity masking; the 5xN F-matrix lift
 becomes direct block indexing with ``dynamic_slice``-style gathers; the
 whole update jits and ``vmap``s over worlds (state dim 23 is tiny — the

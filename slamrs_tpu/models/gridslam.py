@@ -9,14 +9,14 @@ odometry motion model, (2) weight by ``p(z | x, m) * p(x | x0, u)``,
 and systematically resample (slam.rs:45-75; resample every update, as the
 reference does).
 
-TPU-first design (not a port):
+Design (not a port):
 
 * The reference iterates particles serially and resampling deep-clones
   ``(Pose, Map)`` — whole log-odds vectors — per surviving particle
   (particle.rs:78-105).  Here the particle set is a leading array axis:
-  poses ``f32[P, 3]``, grids ``f32[P, H, W]`` resident in HBM; motion
-  sampling / weighting / integration are ``vmap`` over P, and resampling is
-  one gather (``jnp.take``) by ancestor index.
+  poses ``f32[P, 3]``, grids ``[P, H, W]`` resident in device memory;
+  motion sampling / weighting / integration are ``vmap`` over P, and
+  resampling is one gather (``jnp.take``) by ancestor index.
 * Weights are accumulated in log space (the reference multiplies f64
   pdf values; log-f32 is the numerically-equivalent stable form).
 * Deliberate deviations from reference quirks (SURVEY §7):
@@ -28,28 +28,17 @@ TPU-first design (not a port):
     the pre-resample argmax particle's pose (the intended semantics).
 * ``resample_neff_frac`` optionally gates resampling on N_eff (standard
   RBPF practice; default 1.0 resamples every update like the reference —
-  the gate avoids the HBM-heaviest op, the grid gather, when weights are
-  still uniform enough).
+  the gate skips the whole-set grid gather, the largest memory move of
+  an update, when weights are still uniform enough).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
-import sys
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-# profiling-harness bypasses (benchmarks/prof_e2e.py): frozen at import
-# so a mid-process env leak can't silently flip them, and LOUD — a run
-# with either set produces garbage SLAM output by design
-_STUB_KERNEL = bool(os.environ.get("SLAMRS_STUB_KERNEL"))
-_STUB_RESAMPLE = bool(os.environ.get("SLAMRS_STUB_RESAMPLE"))
-if _STUB_KERNEL or _STUB_RESAMPLE:
-    print("WARNING: SLAMRS_STUB_* profiling bypass active — grid SLAM "
-          "output is fabricated (benchmarks only)", file=sys.stderr)
 
 from slamrs_tpu.core import motion
 from slamrs_tpu.core.types import OdometryReading, Scan
@@ -73,41 +62,20 @@ class GridSlamConfig:
     max_scan_range: float = 1.0  # bounds the DDA step count (static)
     resample_neff_frac: float = 1.0  # 1.0 == always resample (reference)
     # "dda":   exact reference-parity scatter walk (grid/ray.rs semantics).
-    # "dense": TPU-native scatter-free windowed polar update (see
+    # "dense": scatter-free windowed polar update (see
     #          ops.grid.grid_integrate_dense) — equivalent sensor model.
-    # "fused": single Pallas kernel doing likelihood + integrate in one
-    #          VMEM pass per particle (ops.fused) — the throughput path;
-    #          grids get a 128-padded column axis and optionally bf16.
+    # "fused": likelihood + integrate in one pass over a window around
+    #          each particle (ops.fused) — the throughput path; grids
+    #          optionally bf16.
     integrate: str = "dda"
-    grid_dtype: str = "float32"  # "bfloat16" keeps big fleets VMEM-resident
-    # fused-path grid placement: None = auto by (unbatched) size; False
-    # forces HBM windows — REQUIRED under vmap (the per-world slice looks
-    # small at trace time but the batched array is worlds x bigger)
-    fused_resident: bool | None = None
-    # fused-HBM resample mechanism.  None = auto = the ALIASED
-    # staged-lineage kernel (ops.fused._kernel_hbm_staged — unique
-    # ancestor maps staged to HBM in the kernel prologue, every write in
-    # place) where the geometry allows, else the staged copy-on-write
-    # pass (ops.cow — only duplicated maps move).  "staged" pins the
-    # lineage kernel; True pins CoW; False (set by the graph compiler
-    # under vmap — the copy/lineage kernels are per-call) falls back to
-    # the whole-set gather behind an N_eff cond.  "deferred" pins the
-    # older NON-aliased band kernel (ops.fused._kernel_hbm_anc): correct
-    # and tested, but a measured dead end (no aliasing costs ~318 us;
-    # benchmarks/README.md) — kept as documentation.  "tiled" switches
-    # the map STORAGE to a shared tile pool + per-particle band table
-    # (ops.tiles): resampling relabels the table (zero map bytes) and
-    # only the 2 bands a particle writes are privatized copy-on-write —
-    # the config-3 formulation (2 GB map sets, where whole-map CoW is
-    # the measured HBM-bound step cost).  Unbatched worlds only.
-    resample_cow: bool | str | None = None
+    grid_dtype: str = "float32"  # "bfloat16" halves the fused map set
     # STATIC beam spacing (radians) of the scan's uniform angle table,
     # or None to derive it from scan.angles at trace time.  Both scan
     # producers emit 1-degree tables (simulator.py:155, io/neato.py:51),
     # so the graph compiler sets math.radians(1.0) on fused configs —
-    # the cell pass then runs the 5-ops-leaner static bin-units
-    # pipeline (ops/fused._cell_pass).  Leave None for nonstandard
-    # tables fed directly into update().
+    # the cell pass then runs the static bin-units pipeline
+    # (ops/fused._cell_pass).  Leave None for nonstandard tables fed
+    # directly into update().
     beam_spacing: float | None = None
     # mesh-sharded fleet resampling mode: "local" relabels slots
     # local-first so only spilled unique maps cross devices
@@ -115,11 +83,6 @@ class GridSlamConfig:
     # the exact slot-ordered take (bitwise-reproducible vs the
     # unsharded fleet, at all-gather cost).
     fleet_resample: str = "local"
-
-    @property
-    def padded_cols(self) -> int:
-        c = self.grid_spec.cols
-        return (c + 127) // 128 * 128
 
     @property
     def grid_spec(self) -> GridSpec2D:
@@ -131,68 +94,24 @@ class GridSlamConfig:
         return self.grid_spec.max_ray_steps(self.max_scan_range)
 
 
-def auto_tiled(config: "GridSlamConfig") -> bool:
-    """ONE-comparison storage heuristic (VERDICT r4 #5): tile-pool maps
-    when the particle map SET is so large that the whole-map CoW
-    resample is HBM-write-bandwidth bound — BENCH_CONFIG3_BOUND measured
-    the staged CoW copy at ~94% of HBM peak on the 2 GB config-3 set,
-    and the tiled ~18x byte cut there wins 2.7x end to end
-    (BENCH_DETAIL config3 tiled vs dense).  Below ~1 GB the duplicated
-    bytes fit the copy budget and the dense kernels win (the tiled
-    kernel's compute is fully exposed; benchmarks/README.md) — the
-    0.02 m headline set (80 MB) and config 2 (82 MB) stay dense."""
-    if config.integrate != "fused" or config.resample_cow is not None:
-        return False
-    spec = config.grid_spec
-    itemsize = 2 if config.grid_dtype == "bfloat16" else 4
-    set_bytes = config.n_particles * spec.rows * config.padded_cols \
-        * itemsize
-    return set_bytes > _AUTO_TILED_BYTES
-
-
-_AUTO_TILED_BYTES = 1 << 30  # see auto_tiled (module-level for tests)
-
-
 class GridSlamState(NamedTuple):
     poses: Array  # f32[..., P, 3]
-    grids: Array  # f32[..., P, H, W] log-odds (tiled: the tile POOL)
+    grids: Array  # [..., P, H, W] log-odds (f32, or bf16 on "fused")
     weights: Array  # f32[..., P] normalized
     best_pose: Array  # f32[..., 3] argmax-weight particle pose
     best_idx: Array  # i32[...]
-    # pending resample lineage: particle i's map is grids[ancestors[i]].
-    # The fused VMEM-resident path defers the whole-map ancestor gather
-    # into the next update's kernel (an index indirection there); all
-    # other paths keep it applied, i.e. ancestors == identity.
+    # resample lineage of the last update: every update applies it, so
+    # particle i's map is grids[i] and this is the identity
     ancestors: Array  # i32[..., P]
-    # tiled maps only (resample_cow="tiled"): per-particle band table —
-    # logical band b of particle i lives in pool tile tile_table[i, b]
-    # (ops/tiles.py).  None for dense map storage.
-    tile_table: Array | None = None  # i32[P, nb]
 
     @staticmethod
     def init(config: GridSlamConfig, batch_shape=()) -> "GridSlamState":
         p = config.n_particles
         spec = config.grid_spec
-        tile_table = None
         if config.integrate == "fused":
             dtype = jnp.bfloat16 if config.grid_dtype == "bfloat16" \
                 else jnp.float32
-            if config.resample_cow == "tiled" or auto_tiled(config):
-                from slamrs_tpu.ops.tiles import init_tiled
-
-                grids, tile_table = init_tiled(
-                    p, spec, config.max_scan_range, dtype=dtype)
-                if batch_shape:
-                    # per-world pools (update_fleet loops worlds at
-                    # trace time — the tile plan is per-call)
-                    grids = jnp.broadcast_to(
-                        grids, (*batch_shape, *grids.shape))
-                    tile_table = jnp.broadcast_to(
-                        tile_table, (*batch_shape, *tile_table.shape))
-            else:
-                grids = jnp.zeros(
-                    (*batch_shape, p, spec.rows, config.padded_cols),
-                    dtype)
+            grids = spec.new_grid((*batch_shape, p), dtype)
         else:
             grids = spec.new_grid((*batch_shape, p))
         return GridSlamState(
@@ -203,7 +122,6 @@ class GridSlamState(NamedTuple):
             best_idx=jnp.zeros(batch_shape, jnp.int32),
             ancestors=jnp.broadcast_to(jnp.arange(p, dtype=jnp.int32),
                                        (*batch_shape, p)),
-            tile_table=tile_table,
         )
 
 
@@ -273,8 +191,7 @@ def _weigh_and_select(log_lik: Array, log_motion: Array,
 
 def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
            key: Array, config: GridSlamConfig,
-           noise: UpdateNoise | None = None,
-           external_resample: bool = False
+           noise: UpdateNoise | None = None
            ) -> tuple[GridSlamState, GridSlamOutputs]:
     """One SLAM update for a single world (vmap over worlds for fleets).
 
@@ -283,14 +200,6 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
     (:func:`derive_noise` of the same ``key`` — the identical draws);
     when given, ``key`` is not consumed, letting rollouts hoist all RNG
     out of the sequential scan body.
-
-    ``external_resample=True`` (fused path only) skips the resample
-    APPLICATION entirely: the returned state carries the pending
-    ``ancestors`` with poses and grids untouched, and the CALLER must
-    apply the lineage (``update_fleet`` does this with one flattened
-    copy-on-write pass across all worlds — the per-call CoW kernel is
-    not vmappable, but a [W*P] plan with block-diagonal ancestors is a
-    single call).
     """
     p = config.n_particles
     spec = config.grid_spec
@@ -313,91 +222,18 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
                               eps=eps)
 
     # 2+3) weights log p(z|x,m) + integrate (slam.rs:62, 67).  The fused
-    # path does both in one Pallas VMEM pass; the others are separate ops.
-    deferred = False
-    # tiled STORAGE is decided at init (explicit resample_cow="tiled" or
-    # the auto_tiled heuristic) — the state carries the decision
-    tiled = (config.integrate == "fused"
-             and state.tile_table is not None)
-    if state.tile_table is not None and (
-            config.integrate != "fused"
-            or config.resample_cow not in (None, "tiled")):
-        # a tiled state under a non-tiled config would silently treat
-        # the tile POOL as dense [P, H, W] maps
-        raise ValueError("state has a tile_table but the config does "
-                         "not accept tiled maps (integrate='fused' with "
-                         "resample_cow None or 'tiled')")
-    if config.resample_cow == "tiled" and state.tile_table is None:
-        raise ValueError("config pins resample_cow='tiled' but the state "
-                         "has no tile pool — init with the same config")
-    new_table = None
-    if tiled:
-        from slamrs_tpu.ops.tiles import fused_update_tiled
+    # path does both in one call; the others are separate ops.
+    if config.integrate == "fused":
+        from slamrs_tpu.ops.fused import fused_update
 
-        nb_beams = scan.angles.shape[-1]
-        dphi = (config.beam_spacing if config.beam_spacing is not None
-                else scan.angles[..., 1] - scan.angles[..., 0]
-                if nb_beams > 1 else jnp.float32(2.0 * jnp.pi))
-        # PENDING lineage (like the deferred dense path): the band-table
-        # relabel — the tiled resample's only data movement — happens
-        # inside the call, and the kernel's shared-window groups key on
-        # the ancestors directly (no content sort)
-        grids, new_table, log_lik = fused_update_tiled(
-            state.grids, state.tile_table, new_poses, scan.angles[..., 0],
-            scan.distances, scan.valid, scan.present, spec, nb_beams,
-            config.max_scan_range, dphi=dphi,
-            interpret=jax.default_backend() == "cpu",
-            ancestors=state.ancestors)
-    elif config.integrate == "fused":
-        from slamrs_tpu.ops.fused import (fits_vmem_resident, fused_update,
-                                          supports_deferred_hbm)
-
-        interpret = jax.default_backend() == "cpu"
-        grid_bytes = (state.grids.size
-                      * jnp.dtype(state.grids.dtype).itemsize)
-        if config.fused_resident is not None:
-            resident = config.fused_resident
-        else:
-            resident = fits_vmem_resident(grid_bytes)
-        # HBM grids defer lineage into the kernel where the geometry
-        # allows (full-width windows): auto (resample_cow=None) and
-        # "staged" use the ALIASED staged-lineage kernel
-        # (ops.fused._kernel_hbm_staged — unique ancestor maps staged to
-        # an HBM buffer in the kernel prologue, all writes in place),
-        # which replaces the separate ~300 us/frame CoW pass at 0.02 m.
-        # "deferred" keeps the older non-aliased band kernel
-        # (_kernel_hbm_anc — measured dead end, benchmarks/README.md).
-        hbm_lineage = "bands" if config.resample_cow == "deferred" \
-            else "staged"
-        hbm_lineage_ok = supports_deferred_hbm(
-            spec, config.max_scan_range, state.grids.shape[-2],
-            state.grids.shape[-1])
-        if (config.resample_cow in ("staged", "deferred")
-                and not resident and not hbm_lineage_ok):
-            # an EXPLICIT kernel pin must not silently degrade to the
-            # CoW pass — A/B measurements would measure the wrong path
-            raise ValueError(
-                f"resample_cow={config.resample_cow!r} pinned but the "
-                "geometry does not support the lineage HBM kernel "
-                "(needs full-width windows and wr >= rows - wr)")
-        deferred = resident or (
-            config.resample_cow in (None, "deferred", "staged")
-            and hbm_lineage_ok)
         nb = scan.angles.shape[-1]
         dphi = (config.beam_spacing if config.beam_spacing is not None
                 else scan.angles[..., 1] - scan.angles[..., 0]
                 if nb > 1 else jnp.float32(2.0 * jnp.pi))
-        if _STUB_KERNEL:  # profiling only (loud warning at import)
-            grids = state.grids
-            log_lik = jnp.sum(state.grids[:, :1, :1].astype(jnp.float32),
-                              axis=(1, 2)) + new_poses[:, 0]
-        else:
-            grids, log_lik = fused_update(
-                state.grids, new_poses, scan.angles[..., 0], scan.distances,
-                scan.valid, scan.present, spec, nb,
-                config.max_scan_range, resident=resident, interpret=interpret,
-                ancestors=state.ancestors if deferred else None, dphi=dphi,
-                hbm_lineage=hbm_lineage)
+        grids, log_lik = fused_update(
+            state.grids, new_poses, scan.angles[..., 0], scan.distances,
+            scan.valid, scan.present, spec, nb, config.max_scan_range,
+            dphi=dphi)
     else:
         log_lik = jax.vmap(
             lambda g, q: grid_log_likelihood(g, spec, q, scan.angles,
@@ -418,64 +254,18 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
                                  odometry.distance_left,
                                  odometry.distance_right, odometry.wheel_base)
 
-    if _STUB_RESAMPLE:  # profiling only (loud warning at import)
-        new_state = GridSlamState(
-            poses=new_poses, grids=grids, weights=state.weights,
-            best_pose=new_poses[0], best_idx=jnp.int32(0),
-            ancestors=state.ancestors,
-            tile_table=new_table if tiled else state.tile_table)
-        return new_state, GridSlamOutputs(
-            pose=new_poses[0], n_eff=jnp.sum(log_lik),
-            resampled=jnp.bool_(False))
-
     # 4-5) weighting + gated systematic resample (_weigh_and_select);
-    # the grid gather applies below per formulation (deferred / CoW /
-    # whole-set take behind a cond)
+    # the whole-set grid gather runs only when the N_eff gate fires
     weights, ancestors, best_idx, n_eff, do_resample = _weigh_and_select(
         log_lik, log_motion, state.weights, k_resample,
         config.resample_neff_frac, p, u01=u01)
     best_pose = new_poses[best_idx]
-    identity = jnp.arange(p, dtype=jnp.int32)
-    use_cow = (config.integrate == "fused" and not deferred and not tiled
-               and (config.resample_cow
-                    if config.resample_cow is not None else True))
-    if external_resample:
-        if config.integrate != "fused" or deferred or tiled:
-            raise ValueError("external_resample needs the fused path "
-                             "with in-call lineage disabled (the caller "
-                             "owns the application)")
-        # the caller applies the lineage (flattened CoW across worlds);
-        # poses and grids stay in pre-resample slot order
-        pending = ancestors
-    elif tiled:
-        # tile-pool maps: the resample is a band-TABLE relabel — zero
-        # map bytes move — applied PENDING inside the NEXT update's call
-        # (identity ancestors on N_eff skip make it a no-op gather);
-        # privatization happens copy-on-write inside the kernel
-        # (ops/tiles.py).  Consumers index the table through the pending
-        # lineage (estimated_probability_grid).
-        new_poses = jnp.take(new_poses, ancestors, axis=0)
-        pending = ancestors
-    elif deferred:
-        new_poses = jnp.take(new_poses, ancestors, axis=0)
-        pending = ancestors  # grids gathered inside the NEXT kernel call
-    elif use_cow:
-        # slot-preserving copy-on-write: only duplicated maps move (the
-        # identity-ancestor skip case degenerates to zero copies)
-        from slamrs_tpu.ops.cow import cow_resample
-
-        new_poses, grids = cow_resample(
-            grids, new_poses, ancestors,
-            interpret=jax.default_backend() == "cpu")
-        pending = identity
-    else:
-        new_poses = jnp.take(new_poses, ancestors, axis=0)
-        grids = jax.lax.cond(
-            do_resample,
-            lambda ga: jnp.take(ga[0], ga[1], axis=0),
-            lambda ga: ga[0],
-            (grids, ancestors))
-        pending = identity
+    new_poses = jnp.take(new_poses, ancestors, axis=0)
+    grids = jax.lax.cond(
+        do_resample,
+        lambda ga: jnp.take(ga[0], ga[1], axis=0),
+        lambda ga: ga[0],
+        (grids, ancestors))
 
     new_state = GridSlamState(
         poses=new_poses,
@@ -483,8 +273,7 @@ def update(state: GridSlamState, scan: Scan, odometry: OdometryReading,
         weights=weights,
         best_pose=best_pose,
         best_idx=best_idx,
-        ancestors=pending,
-        tile_table=new_table if tiled else state.tile_table,
+        ancestors=jnp.arange(p, dtype=jnp.int32),
     )
     return new_state, GridSlamOutputs(pose=best_pose, n_eff=n_eff,
                                       resampled=do_resample)
@@ -496,45 +285,24 @@ def update_fleet(state: GridSlamState, scan: Scan,
                  ) -> tuple[GridSlamState, GridSlamOutputs]:
     """Batched-worlds update ([W, ...] state, per-world scan/odo/keys).
 
-    Semantically ``vmap(update)`` — and that is literally the fallback —
-    but with a mesh the fused Pallas kernel runs under ``shard_map`` on
-    each device's local (world, particle) block
-    (:func:`slamrs_tpu.parallel.shard.fused_update_batched`); everything
-    around the kernel stays in pjit-land where the SPMD partitioner owns
-    the collectives (weight normalization/N_eff reduce over the sharded
-    particle axis, the resample gather's all-gather).  Matches the
-    reference update loop slam.rs:45-75 run over W independent worlds.
+    Semantically ``vmap(update)`` — and without a mesh (or off the fused
+    path) that is literally what runs.  With a mesh the fused update
+    runs under ``shard_map`` on each device's local (world, particle)
+    block (:func:`slamrs_tpu.parallel.shard.fused_update_batched`);
+    everything around it stays in pjit-land where the SPMD partitioner
+    owns the collectives (weight normalization/N_eff reduce over the
+    sharded particle axis, the resample gather).  Matches the reference
+    update loop slam.rs:45-75 run over W independent worlds.
 
-    Fleet resampling is applied (not deferred); with a particle-sharded
+    Fleet resampling is applied every update; with a particle-sharded
     mesh the default ``fleet_resample="local"`` relabels slots
     local-first so only spilled unique maps cross devices
     (parallel/resample.py) — ``"gather"`` keeps the exact slot-ordered
     take for bitwise reproducibility vs the unsharded fleet.
     """
-    if state.tile_table is not None:
-        return _update_fleet_tiled(state, scan, odometry, keys, config,
-                                   mesh)
-    if config.integrate != "fused":
+    if config.integrate != "fused" or mesh is None:
         upd = lambda st, sc, od, k: update(st, sc, od, k, config)
         return jax.vmap(upd)(state, scan, odometry, keys)
-    if mesh is None:
-        return _update_fleet_cow(state, scan, odometry, keys, config)
-    world_only = dict(zip(mesh.axis_names, mesh.devices.shape)).get(
-        "particle", 1) == 1
-    if (world_only and config.resample_cow is not False
-            and config.fused_resident is not True
-            and config.fleet_resample != "gather"):
-        # pure-DP mesh: each device owns whole worlds, so the flattened
-        # CoW pass runs per device under shard_map over the world axis —
-        # only duplicated maps move, and nothing crosses devices
-        from jax.sharding import PartitionSpec as _P
-
-        body = lambda st, sc, od, k: _update_fleet_cow(st, sc, od, k,
-                                                       config)
-        w = _P("world")
-        fn = jax.shard_map(body, mesh=mesh, in_specs=(w, w, w, w),
-                           out_specs=(w, w), check_vma=False)
-        return fn(state, scan, odometry, keys)
 
     p = config.n_particles
     spec = config.grid_spec
@@ -554,8 +322,7 @@ def update_fleet(state: GridSlamState, scan: Scan,
     grids, log_lik = fused_update_batched(
         state.grids, new_poses, scan.angles[:, 0], scan.distances,
         scan.valid, scan.present, spec, nb, config.max_scan_range,
-        dphi, mesh=mesh, interpret=jax.default_backend() == "cpu",
-        dphi_static=config.beam_spacing)
+        dphi, mesh=mesh, dphi_static=config.beam_spacing)
 
     log_motion = jax.vmap(motion.log_prob)(
         state.poses, new_poses, odometry.distance_left,
@@ -572,7 +339,7 @@ def update_fleet(state: GridSlamState, scan: Scan,
             and dict(zip(mesh.axis_names, mesh.devices.shape)).get(
                 "particle", 1) > 1):
         # local-first multiset relabeling: only spilled unique maps move
-        # over ICI (parallel/resample.py) instead of the SPMD
+        # between devices (parallel/resample.py) instead of the SPMD
         # partitioner's full-grid all-gather for a sharded-axis take
         from slamrs_tpu.parallel.resample import resample_fleet
 
@@ -593,135 +360,17 @@ def update_fleet(state: GridSlamState, scan: Scan,
                                       resampled=do_resample)
 
 
-def _update_fleet_cow(state: GridSlamState, scan: Scan,
-                      odometry: OdometryReading, keys: Array,
-                      config: GridSlamConfig
-                      ) -> tuple[GridSlamState, GridSlamOutputs]:
-    """Fused-path fleet update with ONE flattened copy-on-write resample
-    across all worlds — the single-device CoW mechanism (only duplicated
-    maps move, ops/cow.py) composed with batched worlds.
-
-    ``update(external_resample=True)`` under vmap leaves every world's
-    lineage PENDING; the application is then a single ``[W*P]``
-    :func:`slamrs_tpu.ops.cow.cow_resample` call with BLOCK-DIAGONAL
-    ancestors (world w's entries offset by ``w*P``).  ``cow_plan`` is
-    world-preserving on such a plan: within each world the number of
-    extra children equals the number of freed slots, and both the copy
-    sources (extra children, ascending by slot) and destinations (freed
-    slots, ascending) enumerate in global slot order, so the per-world
-    prefix counts align — copy j's src and dst always land in the same
-    world block.  Slot order within a world is free (a particle filter
-    is a weighted multiset — same semantics as the mesh-local relabel,
-    parallel/resample.py); ``fleet_resample="gather"`` keeps the
-    slot-exact whole-set take for bitwise-vs-unsharded comparisons.
-    Reference semantics per world: particle.rs:78-105.
-    """
-    if (config.resample_cow is False or config.fused_resident is True
-            or config.fleet_resample == "gather"):
-        # slot-exact fallback: per-world gather behind the N_eff cond
-        cfg = dataclasses.replace(
-            config, resample_cow=False,
-            fused_resident=(False if config.fused_resident is None
-                            else config.fused_resident))
-        upd = lambda st, sc, od, k: update(st, sc, od, k, cfg)
-        return jax.vmap(upd)(state, scan, odometry, keys)
-    from slamrs_tpu.ops.cow import cow_resample
-
-    # force HBM windows (the batched grids array is worlds x bigger than
-    # the per-world slice vmap traces) and pin resample_cow=True so the
-    # per-world update neither defers lineage into the next kernel nor
-    # applies it in-call — external_resample hands it to us pending
-    cfg = dataclasses.replace(config, resample_cow=True,
-                              fused_resident=False)
-    upd = lambda st, sc, od, k: update(st, sc, od, k, cfg,
-                                       external_resample=True)
-    st, outs = jax.vmap(upd)(state, scan, odometry, keys)
-    w = st.poses.shape[0]
-    p = config.n_particles
-    anc = (st.ancestors
-           + p * jnp.arange(w, dtype=jnp.int32)[:, None]).reshape(w * p)
-    gshape = st.grids.shape
-    poses, grids = cow_resample(
-        st.grids.reshape(w * p, *gshape[2:]),
-        st.poses.reshape(w * p, 3), anc,
-        interpret=jax.default_backend() == "cpu")
-    identity = jnp.broadcast_to(jnp.arange(p, dtype=jnp.int32), (w, p))
-    st = st._replace(poses=poses.reshape(w, p, 3),
-                     grids=grids.reshape(gshape),
-                     ancestors=identity)
-    return st, outs
-
-
-def _update_fleet_tiled(state: GridSlamState, scan: Scan,
-                        odometry: OdometryReading, keys: Array,
-                        config: GridSlamConfig, mesh=None
-                        ) -> tuple[GridSlamState, GridSlamOutputs]:
-    """Tiled-pool fleets (``resample_cow="tiled"`` at scale).
-
-    The tiled kernel's copy-on-write plan is scalar-prefetched per call,
-    so worlds run as a TRACE-TIME loop — fleet widths at tiled geometry
-    are small by construction (the 2 GB config-3 pools cap how many
-    worlds a chip holds).  Under a world-only mesh the loop runs per
-    device inside ``shard_map``: each device owns whole worlds' pools
-    and band tables, so the zero-copy band-table relabel — the whole
-    point of tiled maps — survives scale-out with nothing crossing
-    devices.  Reference semantics at scale: particle.rs:78-105 over
-    independent worlds (slam.rs:45-75 each).
-    """
-    if mesh is not None:
-        axes = dict(zip(mesh.axis_names, mesh.devices.shape))
-        if axes.get("particle", 1) != 1:
-            raise ValueError("tiled fleets shard over worlds only (the "
-                             "tile pool and its CoW plan are per-world)")
-        from jax.sharding import PartitionSpec as _P
-
-        body = lambda st, sc, od, k: _update_fleet_tiled(st, sc, od, k,
-                                                         config, None)
-        w = _P("world")
-        fn = jax.shard_map(body, mesh=mesh, in_specs=(w, w, w, w),
-                           out_specs=(w, w), check_vma=False)
-        return fn(state, scan, odometry, keys)
-    n_worlds = state.poses.shape[0]
-    sts, outs = [], []
-    for i in range(n_worlds):
-        st_i, out_i = update(jax.tree.map(lambda x: x[i], state),
-                             jax.tree.map(lambda x: x[i], scan),
-                             jax.tree.map(lambda x: x[i], odometry),
-                             keys[i], config)
-        sts.append(st_i)
-        outs.append(out_i)
-    stk = lambda *xs: jnp.stack(xs)
-    return jax.tree.map(stk, *sts), jax.tree.map(stk, *outs)
-
-
-def estimated_probability_grid(state: GridSlamState,
-                               config: GridSlamConfig | None = None) -> Array:
+def estimated_probability_grid(state: GridSlamState) -> Array:
     """Occupancy probabilities of the best particle's map.
 
     Parity: GridMapSlam::estimated_likelihood (slam.rs:83-88) — the argmax
-    particle's log-odds grid converted cell-wise to probability.  For the
-    fused path, pass ``config`` to slice off the 128-padded column tail.
+    particle's log-odds grid converted cell-wise to probability.
     """
-    if state.tile_table is not None:  # tiled pool: gather ONE map's tiles
-        from slamrs_tpu.ops.tiles import materialize_one
-
-        # the tile table carries a PENDING lineage: slot i's row is
-        # tile_table[ancestors[i]] until the next update applies it
-        if state.tile_table.ndim == 3:  # [W, P, nb] batched worlds
-            one = lambda pool, tbl, anc, bi: materialize_one(
-                pool, tbl[anc[bi]])
-            grid = jax.vmap(one)(state.grids, state.tile_table,
-                                 state.ancestors, state.best_idx)
-        else:
-            row = state.tile_table[state.ancestors[state.best_idx]]
-            grid = materialize_one(state.grids, row)
-    elif state.grids.ndim > 3:  # [..., P, H, W] batched worlds
+    if state.grids.ndim > 3:  # [..., P, H, W] batched worlds
         idx = state.best_idx[..., None, None, None]
         grid = jnp.take_along_axis(
             state.grids, idx, axis=-3).squeeze(-3)
     else:
         grid = state.grids[state.best_idx]
-    if config is not None:
-        grid = grid[..., :config.grid_spec.rows, :config.grid_spec.cols]
     grid = grid.astype(jnp.float32)
     return 1.0 - 1.0 / (1.0 + jnp.exp(grid))

@@ -7,7 +7,7 @@ point-to-normal ICP starting from the previous pose estimate, the estimate
 is replaced by the ICP result, and the transformed scan points are appended
 to the map (pointmap.rs:45-76).
 
-TPU-first design:
+Design:
 
 * The reference's map grows unbounded (subsampling is an acknowledged TODO
   at pointmap.rs:67).  A traced array cannot grow, so the map is a

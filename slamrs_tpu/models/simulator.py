@@ -14,7 +14,7 @@ and the scene model (simulator/src/scene/ray.rs, landmark.rs):
   *squared* distance (a reference quirk, sim.rs:182-184, kept for parity),
   Gaussian angle/distance noise, known association ids (sim.rs:173-199).
 
-TPU-first design: ``tick`` is a pure function over pytrees — one fused XLA
+Design: ``tick`` is a pure function over pytrees — one fused XLA
 program per tick covering all worlds.  The reference's 30 Hz
 accumulator thread (simulator/src/lib.rs:274-299) becomes either host-side
 pacing (interactive mode) or a ``lax.scan`` over ticks (rollouts).  The

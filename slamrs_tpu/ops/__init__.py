@@ -1,4 +1,4 @@
-"""TPU kernels / batched primitives.
+"""Batched primitives and kernels.
 
 Submodules (import them directly; functions keep their module namespaces so
 module and function names never shadow each other):

@@ -1,82 +1,63 @@
-"""Fused RBPF grid-SLAM update: one Pallas TPU kernel per step.
+"""Fused RBPF grid-SLAM update: likelihood + scan integration per particle.
 
-This is the throughput path for the particle-filter occupancy-grid SLAM
-core (reference semantics: ``GridMapSlam::update`` at
-slamrs/slam/src/grid/slam.rs:45-75 — per particle, weight by
-``Map::probability_of`` (map.rs:113-145) and integrate the scan with
-``Map::integrate`` + ``inverse_sensor_model`` (map.rs:71-106, 148-172)).
+Reference semantics: ``GridMapSlam::update`` (slamrs/slam/src/grid/
+slam.rs:45-75) — per particle, weight by ``Map::probability_of``
+(map.rs:113-145) and integrate the scan with ``Map::integrate`` +
+``inverse_sensor_model`` (map.rs:71-106, 148-172).
 
-Design (TPU-first, measured on a v5e):
+Integration is a dense cell pass over a window around each particle: per
+cell, the polar coordinates (r, phi) relative to the particle pose pick
+the covering beam (phi -> angular bin -> one lookup in the beam table)
+and the inverse sensor model yields the log-odds increment,
+multiplicity-compensated near the robot exactly like
+``ops.grid.grid_integrate_dense``.  Every cell outside the window is
+untouched.  The measurement likelihood is the reference's exact per-beam
+endpoint product, gathered from the pre-update map.
 
-* Per-particle log-odds grids ``[P, H, W]`` live as ONE array whose
-  physical size is kept small enough (bf16 for fine grids, f32 for coarse)
-  that XLA keeps it **VMEM-resident across jitted scan steps** — measured
-  4.7 TB/s effective vs 670 GB/s HBM streaming on this chip.  For grids
-  that cannot fit (50x50 m config) the same kernel body runs with
-  HBM-resident grids and explicit window DMA (``resident=False``).
-* The kernel processes, per particle, a row-window ``[WR, W]`` around the
-  robot covering the scan disc (max range + DDA overshoot).  Everything
-  else in the grid is untouched (``input_output_aliases`` keeps the
-  update in place).
-* Integration is a dense cell pass: per cell, the polar coordinates
-  (r, phi) relative to the particle pose pick the covering beam
-  (phi -> angular bin -> ONE ``take_along_axis`` lane-gather of a
-  bit-PACKED beam table: 3 beams x 10-bit fixed-point distance per
-  32-bit lane, so all 360 bins live in one native 128-entry gather
-  granule; the 3-chunk unpacked gather this replaces measured +75
-  us/update at 0.02 m, benchmarks/prof_trim.py) and the inverse sensor
-  model yields the log-odds increment (multiplicity-compensated near
-  the robot, exactly like ``ops.grid.grid_integrate_dense``).
-  Documented deviation of the packing: beam distances snap to a static
-  power-of-two quantum (:func:`pack3_quantum` — 1/8 cell at reference
-  ranges, growing with range/resolution so 511 units always cover the
-  scan disc), moving each ISM interval bound by at most half a quantum
-  (1.25 mm at the 0.02 m config).  ``fused_update_reference`` mirrors
-  the quantization exactly (:func:`quantize_d_enc`), and the dda path
-  — the fidelity contract — is untouched.
-* The measurement likelihood is the reference's EXACT per-beam endpoint
-  product (map.rs:113-145), computed entirely LANE-MAJOR (beams on the
-  512-lane axis — a beam-per-sublane [512,1] layout runs at 1/128 lane
-  utilization and measured 6x the cost of the whole cell pass): beam
-  endpoints come from the per-beam cos/sin rows of the beam table and
-  two host-side cos/sin of theta; the endpoint cell's log-odds is
-  fetched with chunked 128-lane ``take_along_axis`` column gathers (the
-  same native Mosaic op the ISM bin lookup uses) followed by a one-hot
-  sublane reduction for the row select — recovering the stored value
-  bit-exactly, so the untouched-cell check ``odds == 0`` keeps reference
-  semantics.  The ``Z_HIT * p + (1-Z_HIT)/maxdist`` mixture then runs on
-  512 lanes instead of the whole window.  Only documented deviation: a
-  valid beam whose endpoint lies outside the kernel window (i.e. beyond
-  ``max_range_m`` — never produced by the simulator, possible in
-  replayed real captures) contributes nothing instead of its true cell
-  mixture.
+Three formulations share that per-cell arithmetic:
 
-Assumes the scan is a uniform angular table starting at ``angles0``
-with spacing ``dphi`` (true for both producers: the simulator and the
-Neato frames emit 1-degree tables; non-uniform tables are NOT detected).
+* :func:`fused_update_reference` — the oracle the tests compare with:
+  per-particle full-width row windows through ``dynamic_slice`` /
+  ``dynamic_update_slice`` under ``vmap``.
+* :func:`fused_update_xla` — the plain production version: windows
+  cropped to the scan disc's bounding box in rows and columns
+  (:func:`crop_window`), which XLA compiles to one gather, one fused
+  elementwise pass and one scatter.
+* :func:`fused_update_triton` — the cell pass as one Pallas kernel
+  through Triton: each program reads a power-of-two tile of its
+  particle's window with masked loads and writes it back in place.
+
+:func:`fused_update` picks one of them from the platform
+(:func:`update_impl`).
+
+Assumes the scan is a uniform angular table starting at ``angles0`` with
+spacing ``dphi`` (true for both producers: the simulator and the Neato
+frames emit 1-degree tables; non-uniform tables are NOT detected).
 ``dphi`` is honored exactly — a partial-sector table (e.g. 90 beams x 1
 degree) masks cells outside the swept sector instead of wrapping them
-onto wrong beams.  ``num_beams`` must fit the gather chunks (<= 383;
-statically asserted).
+onto wrong beams.
 
-Beam-table encoding: one f32 lane per beam,
-``d_enc = +d_cells`` (valid hit), ``-d_cells`` (present, invalid) and
-``-0.0`` (absent / padding), so a single gather recovers distance and
-both flags (map.rs treats invalid beams as free-space up to the measured
-distance; absent beams are no-ops).
+Documented deviation: integration covers the scan disc (``max_range_m``
+plus the ISM margin), so a beam measured beyond ``max_range_m`` (never
+produced by the simulator, possible in replayed real captures) marks
+free space only up to the window edge.
+
+Beam-table encoding, row 0: ``d_enc = +d_cells`` (valid hit),
+``-d_cells`` (present, invalid) and ``-0.0`` (absent / padding), so one
+lookup recovers distance and both flags (map.rs treats invalid beams as
+free-space up to the measured distance; absent beams are no-ops).
 """
 
 from __future__ import annotations
 
 import functools
 import math as pymath
-import os
-import sys
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from slamrs_tpu.ops.grid import (ADDITIONAL_STEPS, GridSpec2D, L_FREE,
                                  L_OCCUPIED, SENSOR_MAXDIST, TOLERANCE_CELLS,
@@ -84,1838 +65,424 @@ from slamrs_tpu.ops.grid import (ADDITIONAL_STEPS, GridSpec2D, L_FREE,
 
 Array = jnp.ndarray
 
-# kernel-phase ablation for profiling (benchmarks/prof_r4.py): frozen at
-# import like gridslam's SLAMRS_STUB_* hooks, and LOUD — any value makes
-# the kernel compute garbage by design.  Values: "nolik" (skip the
-# endpoint-likelihood gathers+index math), "nocell" (skip the ISM cell
-# pass), "noatan" (cell pass with the atan2 replaced by a mul),
-# "nogather" (cell pass with the beam-table gather replaced by
-# register math), "nodens" (skip the multiplicity compensation).
-_ABLATE = os.environ.get("SLAMRS_FUSED_ABLATE", "")
-if _ABLATE:
-    print(f"WARNING: SLAMRS_FUSED_ABLATE={_ABLATE} active — fused "
-          "kernel output is fabricated (profiling only)", file=sys.stderr)
+_TWO_PI = 2.0 * pymath.pi
 
-# A/B hook for the window-variant merge (benchmarks/prof_uniq.py): unlike
-# _ABLATE this is CORRECT either way (merging is output-neutral under its
-# coverage condition) — it only changes how many unique window DMAs+rolls
-# the staged kernel performs.  Frozen at import like the other hooks.
-_NOMERGE = bool(os.environ.get("SLAMRS_FUSED_NOMERGE"))
-
-# jax.debug.print the staged kernel's per-call plan sizes (window fills =
-# DMAs+rolls actually performed, staged unique maps) — the direct
-# measurement of "effective uniques" the e2e back-solve estimated
-# (benchmarks/prof_uniq.py; VERDICT r4 #3).  Frozen at import.
-_DEBUG_GROUPS = bool(os.environ.get("SLAMRS_FUSED_DEBUG_GROUPS"))
-# extra lineage-path window rows (8-multiple; see fused_update) — a
-# measured-experiment hook, default off
-_WRPLUS = int(os.environ.get("SLAMRS_FUSED_WRPLUS", "0") or 0)
-assert _WRPLUS % 8 == 0, _WRPLUS
-# bf16 ISM/density tail in the cell pass (the VERDICT r4 #1a lever,
-# measured-experiment hook, default off).  The BIN pipeline must stay
-# f32 — 360 bins are not representable past bf16's ulp of 2.0 at
-# >= 256, and even the octant-reduced atan2 poly output carries a
-# 0.25-bin ulp (would flip 10-25% of assignments vs the gated ~1e-6
-# traced-pipeline class) — so only the tail off the already-quantized
-# ``d`` drops precision: the ISM interval compares in squared space
-# (boundary fuzz <= ulp(r2)/(2 d) ~ 0.16 cells at the 0.02 m disc
-# edge, the order of the pack3 quantum), the density rsqrt (a <= 0.4%
-# perturbation of a multiplicity-compensation factor), and the
-# increment select.  ~23 of the ~79 per-cell vector ops move to the
-# 1.5x bf16 ALU at the cost of 3 casts.  Frozen at import.
-_CELL_BF16 = bool(os.environ.get("SLAMRS_FUSED_CELL_BF16"))
-
-_BEAM_PAD = 512  # beam table lanes (360 -> 3 gather chunks of 128 + pad)
-
-# shared-window cache slots (staged HBM kernel): covers the measured
-# group counts at the concentrated-lineage configs (0.02 m: ~11-40
-# unique ancestors x 1-4 (r0, u0) variants each); overflow groups fall
-# back to the uncached path — correct, just unshared
-_SHAREWIN_SLOTS = 112
+# The formulation the GPU runs (see update_impl).
+GPU_IMPL = "triton"
 
 
-def fits_vmem_resident(grid_bytes: int) -> bool:
-    """THE residency heuristic (single definition — callers must not
-    re-derive it): Mosaic's scoped-vmem accounting counts the aliased
-    grids in AND out, so residency needs 2x the array plus pipeline
-    slack inside this v5e's ~128 MB VMEM (budget kept under it; the
-    limit must stay TIGHT, see fused_update's compiler_params note)."""
-    return 2 * grid_bytes + 8 * 2**20 <= 120 * 1024 * 1024
+def update_impl(platform: str) -> str:
+    """The fused-update formulation for a JAX platform name: the one
+    place the choice is made.  ``"gpu"`` runs :data:`GPU_IMPL`, ``"cpu"``
+    the plain XLA version (the tests' path); any other platform raises."""
+    if platform == "gpu":
+        return GPU_IMPL
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no fused grid update for platform {platform!r}")
+
+
+# ---- geometry ---------------------------------------------------------
+
+
+def disc_half(spec: GridSpec2D, max_range_m: float) -> int:
+    """Half-width (cells) of the box around the robot's cell that holds
+    every cell a beam of length <= ``max_range_m`` can touch (the
+    occupied band ends one cell past the endpoint; +1 cell of margin)."""
+    return (int(pymath.ceil(max_range_m / spec.resolution))
+            + ADDITIONAL_STEPS + 1)
 
 
 def window_rows(spec: GridSpec2D, max_range_m: float) -> int:
-    """Static window row count: scan disc + 8-row alignment slack."""
-    disc = 2 * (int(pymath.ceil(max_range_m / spec.resolution))
-                + ADDITIONAL_STEPS + 1) + 1
-    wr = ((disc + 8) + 7) // 8 * 8  # +8 slack so an 8-aligned r0 exists
+    """Row count of the reference's full-width windows: the scan disc
+    plus slack for the 8-aligned window start."""
+    disc = 2 * disc_half(spec, max_range_m) + 1
+    wr = ((disc + 8) + 7) // 8 * 8
     return min(wr, (spec.rows + 7) // 8 * 8)
 
 
-def supports_deferred_hbm(spec: GridSpec2D, max_range_m: float,
-                          rows: int, cols: int) -> bool:
-    """Whether the fused-lineage HBM kernel (:func:`_kernel_hbm_anc`) can
-    run this geometry: full-width windows (no column crop) and a window
-    tall enough that the two static out-of-window row bands are disjoint.
-    ``rows``/``cols`` are the physical grid array dims (128-padded cols).
-    """
-    wr = window_rows(spec, max_range_m)
-    wr = min(wr, rows - rows % 8 if rows % 8 else rows)
-    disc_half = (int(pymath.ceil(max_range_m / spec.resolution))
-                 + ADDITIONAL_STEPS + 1)
-    wc = cols if (cols <= 256 or disc_half > 64) else 256
-    return wc == cols and rows - wr <= wr
+def crop_window(spec: GridSpec2D, max_range_m: float) -> tuple[int, int]:
+    """(rows, cols) of the production window: the scan disc's bounding
+    box, clipped to the grid."""
+    w = 2 * disc_half(spec, max_range_m) + 1
+    return min(w, spec.rows), min(w, spec.cols)
 
 
-def pack3_quantum(max_range_cells: float) -> float:
-    """Static power-of-two distance quantum for the packed beam-table
-    row: the largest encodable value (511 units) must cover the longest
-    distance the inverse sensor model can see (max range + overshoot +
-    tolerance margin).  1/8 cell up to ~63 cells of range, then 1/4,
-    1/2, ... — the ISM interval bounds move by at most half a quantum."""
-    qu = 0.125
-    while (max_range_cells + ADDITIONAL_STEPS + 2.0) / qu > 511.0:
-        qu *= 2.0
-    return qu
+def crop_origin(cxy: Array, spec: GridSpec2D, max_range_m: float):
+    """Per-particle window origin (r0, c0), i32 [P]: the disc box around
+    the robot's cell, shifted inside the grid.  A shifted box still holds
+    the part of the disc that lies in the grid."""
+    wr, wc = crop_window(spec, max_range_m)
+    h = disc_half(spec, max_range_m)
+    r0 = jnp.clip(jnp.floor(cxy[:, 1]).astype(jnp.int32) - h, 0,
+                  spec.rows - wr)
+    c0 = jnp.clip(jnp.floor(cxy[:, 0]).astype(jnp.int32) - h, 0,
+                  spec.cols - wc)
+    return r0, c0
 
 
-def quantize_d_enc(enc: Array, qu: float) -> Array:
-    """The packed row's value semantics on an unpacked d_enc lane:
-    |d| snapped to ``qu`` units (min 1, the encode's tiny-hit floor;
-    max 511, the field width), sign and +-0 preserved."""
-    dq = jnp.clip(jnp.round(jnp.abs(enc) / qu), 1.0, 511.0) * qu
-    return jnp.where(enc == 0.0, enc, jnp.where(enc > 0.0, dq, -dq))
+def static_dphi(dphi) -> float | None:
+    """The beam spacing as a Python float when the caller gave a static
+    one, else None (a traced table spacing: the generic bin pipeline)."""
+    if isinstance(dphi, (int, float)):
+        return float(dphi)
+    return None
 
 
-def _pack3_row(enc: Array, qu: float) -> Array:
-    """Pack the d_enc lane encoding into 3 x 10-bit fields per i32 lane
-    (bitcast to f32 for table storage): units of ``qu`` cells, 0 =
-    absent, bit 9 = miss.  Lane q holds beams 3q/3q+1/3q+2 at bit
-    offsets 0/10/20 — bins [0, 384) gather from 128 lanes in ONE
-    chunked take_along_axis instead of three (measured -75 us/update
-    at the 0.02 m config, benchmarks/prof_trim.py pack3)."""
-    d8 = jnp.clip(jnp.round(jnp.abs(enc[:384]) / qu), 1, 511).astype(
-        jnp.int32)
-    v = jnp.where(enc[:384] == 0.0, 0,
-                  jnp.where(enc[:384] > 0.0, d8, d8 | 512))
-    packed = v[0::3] | (v[1::3] << 10) | (v[2::3] << 20)
-    row = jax.lax.bitcast_convert_type(packed, jnp.float32)
-    return jnp.concatenate(
-        [row, jnp.zeros((_BEAM_PAD - 128,), jnp.float32)])
+def table_len(num_beams: int, binu: float | None) -> int:
+    """Beam-table length: every beam plus the absent slots that bin
+    indices can reach.  The traced pipeline maps out-of-sector bins to
+    index ``num_beams``; the static pipeline's bins span [0, 2*pi/dphi]."""
+    if binu is None:
+        return num_beams + 1
+    return max(num_beams, int(pymath.ceil(_TWO_PI / binu))) + 1
 
 
 def encode_beam_table(distances_cells: Array, valid: Array,
                       present: Array, angles0: Array | None = None,
                       dphi: Array | None = None,
-                      pack_quantum: float | None = None) -> Array:
-    """[B] beam lanes -> [8, _BEAM_PAD] f32 encoded table.
+                      length: int | None = None) -> Array:
+    """[B] beam lanes -> [5, length] f32 table (``length`` defaults to
+    B + 1; lanes past B are absent).
 
     Row 0: ``d_enc`` (signed/zero encoding, module docstring) for the
-    inverse-sensor-model bin gather.  When ``angles0``/``dphi`` are
-    given, rows 1-4 additionally carry the exact-endpoint likelihood
-    lanes (map.rs:117-123 — only valid beams participate):
+    inverse-sensor-model bin lookup.  When ``angles0``/``dphi`` are
+    given, rows 1-4 carry the endpoint-likelihood lanes (map.rs:117-123
+    — only valid beams participate):
       row 1: distance in cells for valid beams, 0 otherwise;
       row 2: cos(angles0 + b * dphi);
       row 3: sin(angles0 + b * dphi);
       row 4: use flag (valid & present).
-    When ``pack_quantum`` is given, row 5 packs the d_enc encoding at
-    that quantum, 3 beams per lane (:func:`_pack3_row`).
     """
     b = distances_cells.shape[-1]
+    n = b + 1 if length is None else length
     d = jnp.abs(distances_cells)
     enc = jnp.where(valid, d, -d)
     enc = jnp.where(present, enc, jnp.float32(-0.0))
     enc = jnp.where(valid & present & (d == 0.0), jnp.float32(1e-6), enc)
-    pad = jnp.full((_BEAM_PAD - b,), -0.0, jnp.float32)
+    pad = jnp.full((n - b,), -0.0, jnp.float32)
     row = jnp.concatenate([enc.astype(jnp.float32), pad])
-    zero = jnp.zeros((_BEAM_PAD,), jnp.float32)
-    p3 = _pack3_row(row, pack_quantum) if pack_quantum is not None \
-        else zero
     if angles0 is None:
-        t = jnp.broadcast_to(row[None, :], (8, _BEAM_PAD))
-        return t.at[5].set(p3) if pack_quantum is not None else t
-    lane = jnp.arange(_BEAM_PAD, dtype=jnp.float32)
+        return jnp.broadcast_to(row[None, :], (5, n))
+    lane = jnp.arange(n, dtype=jnp.float32)
     ang = angles0 + lane * dphi
-    use = jnp.zeros((_BEAM_PAD,), bool).at[:b].set(valid & present)
-    d_lik = jnp.where(
-        use, jnp.zeros((_BEAM_PAD,), jnp.float32).at[:b].set(
-            d.astype(jnp.float32)), 0.0)
+    use = jnp.zeros((n,), bool).at[:b].set(valid & present)
+    d_lik = jnp.where(use, jnp.zeros((n,), jnp.float32).at[:b].set(
+        d.astype(jnp.float32)), 0.0)
     ca = jnp.where(use, jnp.cos(ang), 0.0)
     sa = jnp.where(use, jnp.sin(ang), 0.0)
-    return jnp.stack([row, d_lik, ca, sa, use.astype(jnp.float32),
-                      p3, zero, zero])
+    return jnp.stack([row, d_lik, ca, sa, use.astype(jnp.float32)])
 
 
-def _gather_beam(table_ref, bins, rows, cols, table_rows=(0,)):
-    """Per-cell beam-table lookups via chunked 128-lane gathers.
+# ---- the per-cell pass (production formulations) -----------------------
 
-    bins: int32 [rows, cols] in [0, 384).  ``table_rows`` selects which
-    beam-table rows to fetch; chunk masks and lane indices are shared
-    across them.  NOTE measured: each extra fetched row costs ~one full
-    gather per chunk (+150 us/update at the 0.02 m config for a 2-row
-    fetch) — gathers dominate everything around them, so keep the hot
-    path at ONE row and decode in registers (see _cell_pass).
-    Returns one [rows, cols] array per requested table row.
+
+def _round_half_even(x: Array) -> Array:
+    """``jnp.round`` from floor and compares (Triton has no round op);
+    exact for |x| < 2**22."""
+    f = jnp.floor(x)
+    frac = x - f
+    odd = (f - 2.0 * jnp.floor(f * 0.5)) != 0.0
+    up = (frac > 0.5) | ((frac == 0.5) & odd)
+    return jnp.where(up, f + 1.0, f)
+
+
+def _cell_pass(win, rowf, colf, cx, cy, t, dphi, inv_dphi, lookup, *,
+               num_beams, binu, div=jnp.divide, sqrt=jnp.sqrt):
+    """Updated window values (f32) of cells at absolute grid coordinates
+    ``rowf``/``colf``; ``win`` holds their pre-update log-odds (f32).
+
+    ``t`` is ``(theta + angles0)/dphi - 0.5`` on the static pipeline
+    (``binu`` = the static spacing) and ``theta + angles0`` on the traced
+    one.  ``lookup`` maps bin indices to beam-table row 0.  Same
+    arithmetic as :func:`fused_update_reference`, op for op; ``div`` and
+    ``sqrt`` let the Triton kernel ask for IEEE-rounded instructions.
     """
-    # SHARED index math across chunks: one `& 127` (lane-within-chunk —
-    # lanes outside a chunk gather garbage and are masked by the chunk-id
-    # select) and one `>> 7` (chunk id) replace the per-chunk
-    # subtract/&127 + two range compares + and (measured -14 us/update
-    # at the 0.02 m config, benchmarks/prof_trim.py)
-    sub_lo = bins & 127
-    cid = jax.lax.shift_right_logical(bins, 7)
-    outs = [jnp.zeros((rows, cols), jnp.float32) for _ in table_rows]
-    for c in range(3):
-        in_chunk = cid == c
-        for t, tr in enumerate(table_rows):
-            tb = jnp.broadcast_to(table_ref[tr:tr + 1, c * 128:(c + 1) * 128],
-                                  (rows, 128))
-            parts = [jnp.take_along_axis(tb, sub_lo[:, j * 128:(j + 1) * 128],
-                                         axis=1)
-                     for j in range(cols // 128)]
-            v = (jnp.concatenate(parts, axis=1) if len(parts) > 1
-                 else parts[0])
-            outs[t] = jnp.where(in_chunk, v, outs[t])
-    return outs[0] if len(table_rows) == 1 else outs
-
-
-def _gather_beam_pack3(table_ref, bins_f, rows, cols, qu, clamp=True):
-    """Single-chunk beam gather off the packed row 5 (see
-    :func:`_pack3_row`): lane = floor(bins/3) on ONE 128-lane table
-    broadcast, then a 10-bit field extract in registers.  Replaces the
-    3-chunk :func:`_gather_beam` (-75 us/update at 0.02 m,
-    benchmarks/prof_trim.py pack3).  ``bins_f`` is the FLOAT bin index
-    in [0, 2pi/dphi); values >= 384 (partial-sector absent bins) clamp
-    onto padding lanes and decode as absent, matching the chunked
-    gather's out-of-range behavior.  ``clamp=False`` statically elides
-    both clamps — sound only when the caller PROVES bins <= 383 (the
-    static-dphi bin pipeline: wrap bound nbf <= 383, so lane <= 127 and
-    rem in {0, 1, 2} by construction).
-    Returns (d [rows, cols] f32 cells, was_hit, present) masks.
-    """
-    third = jnp.float32(1.0 / 3.0)
-    q_f = jnp.floor(bins_f * third)
-    if clamp:
-        q_f = jnp.minimum(q_f, 127.0)
-    # clamp rem too: clamped lanes would otherwise shift by >= 32 bits
-    # (undefined) — any field of the padding lane decodes absent
-    rem = bins_f - 3.0 * q_f
-    if clamp:
-        rem = jnp.minimum(rem, 2.0)
-    shift = (rem * 10.0).astype(jnp.int32)
-    q = q_f.astype(jnp.int32)
-    parts = []
-    for j in range(cols // 128):
-        tb = jnp.broadcast_to(table_ref[5:6, 0:128], (rows, 128))
-        parts.append(jnp.take_along_axis(
-            tb, q[:, j * 128:(j + 1) * 128], axis=1))
-    g = jnp.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
-    v = jax.lax.shift_right_logical(pltpu.bitcast(g, jnp.int32),
-                                    shift) & 1023
-    d = (v & 511).astype(jnp.float32) * qu
-    return d, v < 512, v != 0
-
-
-_ATAN_COEFS = (0.99997726, -0.33262347, 0.19354346, -0.11643287,
-               0.05265332, -0.01172120)
-
-
-def _atan2(y, x, scale: float = 1.0):
-    """``atan2(y, x) * scale`` via octant reduction + minimax poly
-    (~2e-7 rad rel; bins are 1.75e-2 rad wide — bin assignments match
-    exact arctan2 except ~1-per-million boundary cells).  ``scale``
-    folds a STATIC unit conversion (the bin pipeline's 1/dphi) into the
-    poly coefficients and octant constants, eliding the separate
-    [wr, cols] multiply the radian form needs (scale=1.0 reproduces the
-    radian form bitwise — c*1.0 is exact).  The octant ratio stays a
-    plain divide: ``pl.reciprocal(approx=False)`` measured ~5x cheaper
-    in an isolated op chain (benchmarks/prof_ops.py) but +40 us on the
-    full 002 kernel — its multi-op lowering serializes on the same port
-    the surrounding chain needs, while the divide pipelines."""
-    c0, c1, c2, c3, c4, c5 = (c * scale for c in _ATAN_COEFS)
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    hi = jnp.maximum(ax, ay)
-    lo = jnp.minimum(ax, ay)
-    z = lo / jnp.maximum(hi, 1e-30)
-    z2 = z * z
-    a = z * (c0 + z2 * (c1 + z2 * (
-        c2 + z2 * (c3 + z2 * (c4 + z2 * c5)))))
-    a = jnp.where(ay > ax, (pymath.pi / 2) * scale - a, a)
-    a = jnp.where(x < 0, pymath.pi * scale - a, a)
-    return jnp.where(y < 0, -a, a)
-
-
-def _endpoint_lik(w32, params, table_ref, *, wr, cols, num_beams, r0,
-                  logical_rows, logical_cols, c0=None):
-    """Exact per-beam endpoint likelihood (map.rs:113-145) -> f32 scalar.
-
-    Lane-major: beams live on the 512-lane axis throughout.  Per 128-beam
-    chunk, the endpoint column is fetched from every window row with one
-    native 128-lane ``take_along_axis`` gather (per 128-column block) and
-    the endpoint row is selected by a one-hot sublane reduction — exact
-    (a single 1.0 mask row), so the untouched-cell check ``odds == 0``
-    keeps reference semantics.  Beams whose endpoint falls outside the
-    grid are skipped, matching the reference's ``is_valid`` bounds check.
-    """
-    cx, cy, _theta, _a0, ct, st, _dphi, _inv_dphi = params
-    lik_acc = jnp.zeros((1, 128), jnp.float32)
-    n_chunks = -(-num_beams // 128)  # trailing chunks are all padding
-
-    # chunk-local math: each 128-beam chunk loads its table rows straight
-    # from the ref (offset-0 layout) — slicing a live [1,512] vector
-    # value leaves a lane-offset layout Mosaic cannot broadcast across
-    # sublanes ("invalid input layout"), loads are fine.  Index math
-    # stays f32 until after the broadcast (i32 sublane broadcasts hit
-    # the same limitation); floor values are small ints, exact in f32.
-    for bc in range(n_chunks):
-        sl = slice(bc * 128, (bc + 1) * 128)
-        d = table_ref[1:2, sl]   # [1, 128] distance (cells), 0 if unused
-        ca = table_ref[2:3, sl]  # cos(angles0 + b*dphi)
-        sa = table_ref[3:4, sl]
-        use = table_ref[4:5, sl] > 0.5
-
-        # endpoint in grid coords: rotation expanded so cos/sin of theta
-        # are two host-side transcendentals per particle
-        ex = cx + (ct * ca - st * sa) * d
-        ey = cy + (st * ca + ct * sa) * d
-        in_b = ((ex >= 0.0) & (ey >= 0.0) & (ex < float(logical_cols))
-                & (ey < float(logical_rows)))
-        use = use & in_b
-
-        xi = jnp.floor(ex)
-        yi = jnp.floor(ey) - r0.astype(jnp.float32)
-        if c0 is not None:
-            xi = xi - c0.astype(jnp.float32)
-        # window coverage: the scan disc fits the window by construction
-        # (window_rows) — beams beyond max_range_m fall outside and are
-        # dropped (documented deviation, module docstring)
-        use = use & (yi >= 0.0) & (yi < wr) & (xi >= 0.0) & (xi < cols)
-        xi = jnp.where(use, xi, 0.0)
-        yi = jnp.where(use, yi, 0.0)
-
-        yi_b = jnp.broadcast_to(yi, (wr, 128))
-        # column gather: [wr, 128] values w32[i, xi_b] for every row i.
-        # All index arithmetic runs at [1, 128] and only the RESULT is
-        # broadcast (f32 — i32 sublane broadcasts hit Mosaic's layout
-        # limitation); the chunk mask becomes a 0/1 multiply so nothing
-        # but the gather and one fma touch the [wr, 128] domain.
-        g = jnp.zeros((wr, 128), jnp.float32)
-        for k in range(cols // 128):
-            subf = jnp.clip(xi - k * 128, 0.0, 127.0)
-            mf = ((xi >= k * 128) & (xi < (k + 1) * 128)).astype(
-                jnp.float32)
-            sub = jnp.broadcast_to(subf, (wr, 128)).astype(jnp.int32)
-            part = jnp.take_along_axis(w32[:, k * 128:(k + 1) * 128],
-                                       sub, axis=1)
-            g = g + part * mf if cols > 128 else part
-        # row select: one-hot sublane mask, reduce over rows
-        hot = (jax.lax.broadcasted_iota(jnp.int32, (wr, 128), 0).astype(
-            jnp.float32) == yi_b)
-        odds = jnp.sum(jnp.where(hot, g, 0.0), axis=0,
-                       keepdims=True)  # [1, 128]
-
-        p = 1.0 - 1.0 / (1.0 + jnp.exp(odds))
-        mix = Z_HIT * p + (1.0 - Z_HIT) / SENSOR_MAXDIST
-        factor = jnp.where(odds == 0.0, 1.0 / SENSOR_MAXDIST, mix)
-        lik_acc = lik_acc + jnp.where(use, jnp.log(factor), 0.0)
-    return jnp.sum(lik_acc)
-
-
-def _fold_select(g, yi_f, *, wr):
-    """``g[yi[l], l]`` per lane via 8-aligned binary halving selects +
-    a final one-hot over one [8,128] vreg — bitwise-exact row select
-    (exactly one row matches, and for i32 the one-hot sum is exact by
-    construction), ~1/3 the vreg ops of a full-height one-hot.
-    ``g`` [wr,128] f32 or i32, ``yi_f`` [1,128] f32 in [0, wr)."""
-    wf = 8
-    while wf < wr:
-        wf *= 2
-    if wf > wr:
-        g = jnp.concatenate(
-            [g, jnp.zeros((wf - wr, 128), g.dtype)], axis=0)
-    yy = yi_f
-    h = wf
-    while h > 8:
-        h //= 2
-        sel = yy >= float(h)
-        g = jnp.where(jnp.broadcast_to(sel, (h, 128)), g[h:2 * h], g[:h])
-        yy = yy - jnp.where(sel, float(h), 0.0)
-    hot = (jax.lax.broadcasted_iota(jnp.int32, (8, 128), 0).astype(
-        jnp.float32) == jnp.broadcast_to(yy, (8, 128)))
-    return jnp.sum(jnp.where(hot, g, jnp.zeros_like(g)), axis=0,
-                   keepdims=True)
-
-
-def supports_pack2(spec: GridSpec2D, max_range_m: float, cols: int,
-                   wc: int, crop128: bool, ppb: int) -> bool:
-    """Whether the resident kernels can lane-PACK two particles per
-    [wr, 128] compute view (each disc in a 64-lane half): full-width
-    single-block windows, a disc that fits 64 lanes with roll margin,
-    and paired programs.  This is the 0.05 m-class geometry — the cell
-    pass there uses 47 of 128 lanes per particle, so packing nearly
-    halves the ALU-bound per-cell work."""
-    disc_half = (int(pymath.ceil(max_range_m / spec.resolution))
-                 + ADDITIONAL_STEPS + 1)
-    return (not crop128 and wc == cols == 128 and disc_half <= 31
-            and ppb >= 8 and ppb % 2 == 0)
-
-
-def _lik_idx_batched(pv_ref, table_ref, xi_s, yi_s, use_s, i0, *, ppb,
-                     wr, cw, num_beams, logical_rows, logical_cols):
-    """Batched likelihood phase A: the per-beam endpoint index math of
-    ALL ``ppb`` particles of this program as [ppb, 128] ops (one vreg
-    op serves ppb particles — the [1,128]-per-particle formulation was
-    measured 5x slower, benchmarks/prof_lik.py).  Same arithmetic as
-    :func:`_endpoint_lik`'s per-chunk head, bitwise.
-
-    pv_ref: [P, 8] f32 VMEM per-particle vector params
-    (cx, cy, cos/sin theta, r0, ceff — the window's effective column
-    origin of the COMPUTE view, i.e. DMA offset + crop128 roll).
-    Writes xi/yi/use scratch rows [ppb, 128*n_chunks]."""
-    if _ABLATE == "nolik":  # profiling only
-        xi_s[...] = jnp.zeros_like(xi_s)
-        yi_s[...] = jnp.zeros_like(yi_s)
-        use_s[...] = jnp.zeros_like(use_s)
-        return
-    blk = pv_ref[pl.ds(i0, ppb), :]
-    cx = blk[:, 0:1]
-    cy = blk[:, 1:2]
-    ct = blk[:, 2:3]
-    st = blk[:, 3:4]
-    r0v = blk[:, 4:5]
-    ceff = blk[:, 5:6]
-    n_chunks = -(-num_beams // 128)
-    for bc in range(n_chunks):
-        sl = slice(bc * 128, (bc + 1) * 128)
-        d = table_ref[1:2, sl]
-        ca = table_ref[2:3, sl]
-        sa = table_ref[3:4, sl]
-        use = table_ref[4:5, sl] > 0.5
-        ex = cx + (ct * ca - st * sa) * d          # [ppb, 128]
-        ey = cy + (st * ca + ct * sa) * d
-        in_b = ((ex >= 0.0) & (ey >= 0.0) & (ex < float(logical_cols))
-                & (ey < float(logical_rows)))
-        useb = jnp.broadcast_to(use, (ppb, 128)) & in_b
-        xi = jnp.floor(ex) - ceff
-        yi = jnp.floor(ey) - r0v
-        useb = useb & (yi >= 0.0) & (yi < wr) & (xi >= 0.0) & (xi < cw)
-        xi_s[:, sl] = jnp.where(useb, xi, 0.0)
-        yi_s[:, sl] = jnp.where(useb, yi, 0.0)
-        use_s[:, sl] = useb.astype(jnp.float32)
-
-
-def _lik_gather_fold(w32, xi_s, yi_s, odds_s, k, *, wr, cw, num_beams):
-    """Batched likelihood phase B (per particle): endpoint odds via
-    column gather + fold row select on the PRE-update window, written
-    to this particle's ``odds_s`` row."""
-    if _ABLATE == "nolik":  # profiling only
-        odds_s[k:k + 1, :] = jnp.zeros_like(odds_s[k:k + 1, :])
-        return
-    n_chunks = -(-num_beams // 128)
-    for bc in range(n_chunks):
-        sl = slice(bc * 128, (bc + 1) * 128)
-        xi = xi_s[k:k + 1, sl]
-        yi = yi_s[k:k + 1, sl]
-        g = jnp.zeros((wr, 128), jnp.float32)
-        for b in range(cw // 128):
-            subf = jnp.clip(xi - b * 128, 0.0, 127.0)
-            mf = ((xi >= b * 128) & (xi < (b + 1) * 128)).astype(
-                jnp.float32)
-            sub = jnp.broadcast_to(subf, (wr, 128)).astype(jnp.int32)
-            part = jnp.take_along_axis(w32[:, b * 128:(b + 1) * 128],
-                                       sub, axis=1)
-            g = g + part * mf if cw > 128 else part
-        odds_s[k:k + 1, sl] = _fold_select(g, yi, wr=wr)
-
-
-def _lik_gather_fold_packed(pairs128, xi_s, yi_s, odds_s, k, *, wrp,
-                            num_beams):
-    """Batched likelihood phase B off the PACKED bf16 window (i32
-    sublane pairs, ``[wrp, 128]`` = ``[wr//2, 128]`` compute view, which
-    the bf16 kernels already hold for the cell pass): the endpoint
-    column gather moves half the rows of the unpacked form and the fold
-    halves its depth; the stored bf16 is then recovered BIT-EXACTLY by
-    a 16-bit extract + widen (a bf16 is the top half of its f32, so
-    ``bits << 16`` bitcast to f32 equals ``bf16.astype(f32)``).  The
-    fold runs in the i32 domain — value selects + a one-hot sum of
-    exactly one nonzero row are exact for integers, with no -0.0 /
-    NaN-payload hazards a bitcast-to-f32 sum would have.  Output is
-    bitwise identical to :func:`_lik_gather_fold` on the unpacked
-    window."""
-    if _ABLATE == "nolik":  # profiling only
-        odds_s[k:k + 1, :] = jnp.zeros_like(odds_s[k:k + 1, :])
-        return
-    n_chunks = -(-num_beams // 128)
-    for bc in range(n_chunks):
-        sl = slice(bc * 128, (bc + 1) * 128)
-        xi = xi_s[k:k + 1, sl]
-        yi = yi_s[k:k + 1, sl]
-        yh = jnp.floor(yi * 0.5)  # pair row; small ints exact in f32
-        sub = jnp.broadcast_to(xi, (wrp, 128)).astype(jnp.int32)
-        g = jnp.take_along_axis(pairs128, sub, axis=1)
-        v = _fold_select(g, yh, wr=wrp)  # [1, 128] i32 pair
-        odd = (yi - 2.0 * yh) > 0.5
-        half16 = jnp.where(odd, jax.lax.shift_right_logical(v, 16), v)
-        odds_s[k:k + 1, sl] = pltpu.bitcast(
-            jax.lax.shift_left(half16, 16), jnp.float32)
-
-
-def _lik_finish_batched(odds_s, use_s, lik_ref):
-    """Batched likelihood phase C: the exp/log mixture tail over all
-    ppb particles x beam lanes at once + per-particle lane reduction
-    (map.rs:113-145 mixture, same arithmetic as _endpoint_lik)."""
-    odds = odds_s[...]
-    p = 1.0 - 1.0 / (1.0 + jnp.exp(odds))
-    mix = Z_HIT * p + (1.0 - Z_HIT) / SENSOR_MAXDIST
-    factor = jnp.where(odds == 0.0, 1.0 / SENSOR_MAXDIST, mix)
-    lf = jnp.where(use_s[...] > 0.5, jnp.log(factor), 0.0)
-    lik_ref[...] = jnp.broadcast_to(
-        jnp.sum(lf, axis=1, keepdims=True), lik_ref.shape)
-
-
-def _cell_pass(w32, params, table_ref, *, wr, cols, num_beams, r0,
-               logical_rows, logical_cols, c0=None, return_inc=False,
-               qu=None, check_rows=True, binu=None):
-    """Dense inverse-sensor-model integration: returns updated window f32.
-
-    w32: window [wr, cols] f32 log-odds (pre-update).
-    params: (cx, cy, theta, a0, cos_theta, sin_theta) f32 scalars; cx/cy
-    in grid units.
-    r0: dynamic row offset of the window within the grid.
-    logical_rows/cols: cells beyond these are padding — never updated
-    (parity with the reference's grid-bounds checks, map.rs:93-97).
-    ``binu`` (static dphi in radians, or None) selects the STATIC
-    bin-units pipeline: the angle is computed directly in bin units
-    (1/dphi folded into the atan2 constants), params slot 3 carries
-    ``T = (theta + angles0)/dphi - 0.5`` so round() becomes floor() and
-    the close-the-circle select disappears into the wrap, and the
-    gather clamps elide (bins <= nbf <= 383 by construction).  5 fewer
-    [wr, cols] vector ops than the traced-dphi pipeline; bin
-    assignments agree except ~ulp-scale rounding-path flips (the same
-    boundary class as the atan2 poly itself, gated by the oracle tests'
-    flip-fraction bounds).
-    """
-    cx, cy, _theta, ta, _ct, _st, dphi, inv_dphi = params
-    two_pi = 2.0 * pymath.pi
-
-    if _ABLATE == "nocell":  # profiling only
-        if return_inc:
-            return jnp.zeros((wr, cols), jnp.float32) + cx
-        return w32 + cx
-
-    # local window coordinates; the window origin (r0/c0) and the robot
-    # offset fold into ONE scalar-or-[1,128] constant per axis, so dx/dy
-    # each cost a single [wr, cols] add (vs three materializing absolute
-    # coordinates) and the bounds compare against shifted constants —
-    # exact: all folded terms are small-integer-valued f32, so the
-    # bounds predicates are bitwise identical to the absolute form
-    wyl = jax.lax.broadcasted_iota(jnp.int32, (wr, cols), 0).astype(
-        jnp.float32)
-    wxl = jax.lax.broadcasted_iota(jnp.int32, (wr, cols), 1).astype(
-        jnp.float32)
-    r0f = r0.astype(jnp.float32)
-    c0f = None if c0 is None else c0.astype(jnp.float32)
-    dx = wxl + ((0.5 - cx) if c0f is None else c0f + (0.5 - cx))
-    dy = wyl + (r0f + (0.5 - cy))
+    dx = colf + (0.5 - cx)
+    dy = rowf + (0.5 - cy)
     r2 = dx * dx + dy * dy
-
-    if binu is not None and _ABLATE != "noatan":
-        # STATIC bin-units pipeline (docstring): atan2 emits bins
-        # directly, ``ta`` carries T = ta/dphi - 0.5, the wrap bounds
-        # bins to [0, nbf] so round+close-the-circle collapse into one
-        # floor, and partial-sector ABSENT bins land on padding lanes
-        # resolved by the gather itself.
-        inv_s = 1.0 / binu
-        nbf = two_pi / binu  # full-circle bin count (360.0 for 1-deg)
-        assert nbf <= 383.5, (nbf, "static bins must fit the gather")
-        phi_b = _atan2(dy, dx, scale=inv_s)
-        b0 = phi_b - ta
-        b0 = b0 - nbf * jnp.floor(b0 * (1.0 / nbf))
-        bins_f = jnp.floor(b0)
-    else:
-        phi = dy * 0.001 if _ABLATE == "noatan" else _atan2(dy, dx)
-        # angular bin honoring the scan's true spacing, computed in BIN
-        # units (phi*inv_dphi - ta*inv_dphi, wrapped over nb bins — one
-        # op fewer than wrapping in angle space then scaling).  ``ta``
-        # is theta + angles0 pre-folded.  One select maps cells within
-        # half a bin of closing the circle to beam 0 (valid for ANY
-        # dphi, unlike a table wrap lane which only reaches gather
-        # range < 384); partial-sector ABSENT bins land on -0.0 padding
-        # lanes, resolved by the gather itself.
-        nb_f = two_pi * inv_dphi
-        b0 = phi * inv_dphi - ta * inv_dphi
-        b0 = b0 - nb_f * jnp.floor(b0 * (dphi * (1.0 / two_pi)))
-        bins_f = jnp.round(b0)
-        bins_f = jnp.where(bins_f >= nb_f - 0.5, 0.0, bins_f)
-
-    # inverse sensor model (map.rs:148-172).  One gather only: a second
-    # table fetch of pre-squared interval bounds measured +150 us at the
-    # 0.02 m config — in-register decode is far cheaper than another
-    # chunked gather.  The compares run in SQUARED space (A/B derived
-    # from the gathered d per cell) so the per-cell sqrt disappears.
-    if _ABLATE == "nogather":  # profiling only
-        d = jnp.maximum(bins_f * 0.01, 1.0)
-        was_hit = d > 1.5
-        present = d > 0.5
-    elif qu is not None:
-        # packed single-chunk gather (d snapped to the static quantum —
-        # the documented fused-path quantization, module docstring);
-        # the static pipeline's wrap bound elides both decode clamps
-        d, was_hit, present = _gather_beam_pack3(
-            table_ref, bins_f, wr, cols, qu,
-            clamp=binu is None or _ABLATE == "noatan")
-    else:
-        bins = bins_f.astype(jnp.int32)
-        d_enc = _gather_beam(table_ref, bins, wr, cols)
-        was_hit = d_enc > 0.0
-        present = d_enc != 0.0  # +-0.0 -> absent (IEEE: -0.0 == 0.0)
-        d = jnp.abs(d_enc)
-    half = TOLERANCE_CELLS / 2.0
-    if _CELL_BF16:
-        # bf16 tail (module-level hook note): compares, density and the
-        # increment select on the 1.5x packed ALU; d/r2 cast down once,
-        # python-literal constants follow the array dtype (weak typing)
-        d = d.astype(jnp.bfloat16)
-        r2c = r2.astype(jnp.bfloat16)
-        inv_dphi = inv_dphi.astype(jnp.bfloat16)
-    else:
-        r2c = r2
-    cdt = r2c.dtype
-    # select-then-square: one multiply instead of two, identical values
-    am = jnp.where(was_hit, jnp.maximum(d - half, 0.0), d)
-    a_sq = am * am
-    dp = d + half
-    b_sq = jnp.where(was_hit, dp * dp, jnp.asarray(-1.0, cdt))
-    inc = jnp.where(r2c < a_sq, jnp.asarray(L_FREE, cdt),
-                    jnp.where(r2c <= b_sq, jnp.asarray(L_OCCUPIED, cdt),
-                              jnp.asarray(0.0, cdt)))
-    # multiplicity compensation: beams-per-cell density near the robot.
-    # rsqrt stays: sqrt+pl.reciprocal measured ~5x cheaper in an
-    # isolated chain (benchmarks/prof_ops.py) but regressed the full
-    # kernel — see _atan2's docstring for the same in-context effect.
-    dens = (jnp.float32(1.0) if _ABLATE == "nodens" else
-            jnp.maximum(1.0, jax.lax.rsqrt(jnp.maximum(r2c, 0.25))
-                        * inv_dphi))
-    # row bound: statically true whenever the caller proves the window
-    # cannot extend past the logical rows (r0 <= rows - wr and the
-    # physical row count <= logical_rows — every fused_update geometry)
-    in_bounds = wxl < (float(logical_cols) if c0f is None
-                       else float(logical_cols) - c0f)
-    if check_rows:
-        in_bounds = in_bounds & (wyl < float(logical_rows) - r0f)
-    inc = jnp.where(present & in_bounds, inc * dens, 0.0)
-    if inc.dtype != jnp.float32:
-        # widen once at the end (pltpu.roll on the pack2 return path
-        # only takes 32-bit data; the integrate add is f32 either way)
-        inc = inc.astype(jnp.float32)
-
-    # no log-odds clamp: unbounded growth matches the reference and
-    # measurably aids long-run localization (see ops.grid LOGODDS_CLAMP
-    # note for the reverted experiment)
-    if return_inc:
-        return inc  # pack2: the caller adds in grid coordinates
-    return w32 + inc
-
-
-def _params(pp_ref, i):
-    return (pp_ref[i, 0], pp_ref[i, 1], pp_ref[i, 2], pp_ref[i, 3],
-            pp_ref[i, 4], pp_ref[i, 5], pp_ref[i, 6], pp_ref[i, 7])
-
-
-def static_dphi(dphi) -> float | None:
-    """The STATIC beam spacing (python float) when the caller supplied
-    one, else None (traced table — the generic bin pipeline).  Both
-    scan producers emit uniform 1-degree tables (simulator.py:155,
-    io/neato.py:51 — math.radians(1.0)), so production callers pass the
-    spacing statically and the cell pass runs the 5-ops-leaner
-    bin-units pipeline (_cell_pass docstring)."""
-    if dphi is None or isinstance(dphi, (int, float)):
-        return None if dphi is None else float(dphi)
-    return None
-
-
-def _pp_table(cxy, theta, angles0, dphi, p, binu):
-    """[P, 8] SMEM scalar params: cx, cy, theta, ta-or-T, cos, sin,
-    dphi, 1/dphi.  Slot 3 carries ``theta + angles0`` pre-folded
-    (traced pipeline) or ``T = (theta + angles0)/dphi - 0.5`` (static
-    bin-units pipeline — the floor-form rounding constant)."""
-    ta = theta + jnp.broadcast_to(angles0, (p,)).astype(jnp.float32)
+    r = sqrt(r2)
+    phi = jnp.arctan2(dy, dx)
     if binu is not None:
-        ta = ta * jnp.float32(1.0 / binu) - 0.5
-    return jnp.stack([cxy[:, 0], cxy[:, 1], theta, ta,
-                      jnp.cos(theta), jnp.sin(theta),
-                      jnp.broadcast_to(dphi, (p,)),
-                      jnp.broadcast_to(1.0 / dphi, (p,))], axis=-1)
-
-
-def _window_compute(w_in, w_out, i, k, r0, c0, uoff_ref, pp_ref,
-                    table_ref, lik_ref, *, wr, wc, num_beams,
-                    logical_rows, logical_cols, ppb, crop128,
-                    lik_scratch=None, qu=None, check_rows=True, binu=None):
-    """THE per-particle compute on a [wr, wc] window pair (shared by the
-    resident kernels' sliced map views and the HBM kernel's DMA'd
-    scratch window): optional roll to a robot-centered 128-lane view,
-    both passes, per-particle likelihood row, merged write-back.
-    ``c0`` is the window's grid-column offset (None when the window
-    spans the full column axis)."""
-    # bf16 windows roll PACKED: bitcast to i32 (sublane pairs — the lane
-    # axis is untouched, so any u0 works), roll half the elements, and
-    # unpack only the 128 compute lanes.  Halves the roll+cast traffic
-    # of the crop128 path.
-    pair = crop128 and w_out.dtype == jnp.bfloat16 and wr % 2 == 0
-    rolledp = None
-    if pair:
-        u0 = uoff_ref[i]
-        pairs = pltpu.bitcast(w_in[...], jnp.int32)  # [wr//2, wc]
-        rolledp = pltpu.roll(pairs, -u0, 1)
-        w32 = pltpu.bitcast(rolledp[:, :128], jnp.bfloat16).astype(
-            jnp.float32)
-        cw = 128
-        ceff = u0 if c0 is None else c0 + u0
-    elif crop128:
-        u0 = uoff_ref[i]
-        rolled = pltpu.roll(w_in[...].astype(jnp.float32), -u0, 1)
-        w32 = rolled[:, :128]
-        cw = 128
-        ceff = u0 if c0 is None else c0 + u0
+        inv_s = jnp.float32(1.0 / binu)
+        nbf = _TWO_PI / binu
+        b0 = phi * inv_s - t
+        b0 = b0 - nbf * jnp.floor(b0 * (1.0 / nbf))
+        bins = jnp.floor(b0).astype(jnp.int32)
     else:
-        w32 = w_in[...].astype(jnp.float32)
-        cw = wc
-        ceff = c0
-    params = _params(pp_ref, i)
-    if lik_scratch is not None:
-        # batched-lik mode: phase A already produced this particle's
-        # endpoint indices; only the gather+fold is inherently
-        # per-particle (phase C finishes the mixture for the program).
-        # bf16 pair windows gather PACKED (half the rows + fold depth,
-        # bit-exact 16-bit extract).
-        xi_s, yi_s, _use_s, odds_s = lik_scratch
-        if pair:
-            _lik_gather_fold_packed(rolledp[:, :128], xi_s, yi_s, odds_s,
-                                    k, wrp=wr // 2, num_beams=num_beams)
-        else:
-            _lik_gather_fold(w32, xi_s, yi_s, odds_s, k, wr=wr, cw=cw,
-                             num_beams=num_beams)
-    else:
-        lik = _endpoint_lik(w32, params, table_ref, wr=wr, cols=cw,
-                            num_beams=num_beams, r0=r0,
-                            logical_rows=logical_rows,
-                            logical_cols=logical_cols, c0=ceff)
-        lik_ref[k if ppb >= 8 else i % 8, :] = jnp.full((128,), lik,
-                                                        jnp.float32)
-    out = _cell_pass(w32, params, table_ref, wr=wr, cols=cw,
-                     num_beams=num_beams, r0=r0,
-                     logical_rows=logical_rows,
-                     logical_cols=logical_cols, c0=ceff, qu=qu, binu=binu,
-                     check_rows=check_rows)
-    if pair:
-        out_p = pltpu.bitcast(out.astype(jnp.bfloat16), jnp.int32)
-        w_out[...] = pltpu.bitcast(
-            pltpu.roll(jnp.concatenate([out_p, rolledp[:, 128:]], axis=1),
-                       u0, 1), jnp.bfloat16)
-    elif crop128:
-        w_out[...] = pltpu.roll(
-            jnp.concatenate([out, rolled[:, 128:]], axis=1), u0, 1
-        ).astype(w_out.dtype)
-    else:
-        w_out[...] = out.astype(w_out.dtype)
-
-
-def _resident_body(src, dst, i, off_ref, coff_ref, uoff_ref, pp_ref,
-                   table_ref, lik_ref, k, *, wr, cols, wc, num_beams,
-                   logical_rows, logical_cols, ppb, crop128,
-                   lik_scratch=None, qu=None, check_rows=True, binu=None):
-    """One particle of the resident kernels: slice the [wr, wc] window
-    views out of the (VMEM-resident) maps and run the shared compute."""
-    r0 = pl.multiple_of(off_ref[i], 8)
-    if wc == cols:
-        c0 = None
-        w_in = src.at[pl.ds(r0, wr), :]
-        w_out = dst.at[pl.ds(r0, wr), :]
-    else:
-        c0 = pl.multiple_of(coff_ref[i], 128)
-        w_in = src.at[pl.ds(r0, wr), pl.ds(c0, wc)]
-        w_out = dst.at[pl.ds(r0, wr), pl.ds(c0, wc)]
-    _window_compute(w_in, w_out, i, k, r0, c0, uoff_ref, pp_ref,
-                    table_ref, lik_ref, wr=wr, wc=wc, num_beams=num_beams,
-                    logical_rows=logical_rows, logical_cols=logical_cols,
-                    ppb=ppb, crop128=crop128, lik_scratch=lik_scratch,
-                    qu=qu, binu=binu, check_rows=check_rows)
-
-
-def _lik_prepare(pv_ref, table_ref, scr, j, *, ppb, wr, wc, crop128,
-                 num_beams, logical_rows, logical_cols):
-    """Run batched-lik phase A for program ``j`` when scratch is present;
-    returns the lik_scratch tuple (or None in the ppb<8 fallback)."""
-    if scr is None:
-        return None
-    xi_s, yi_s, use_s, odds_s = scr
-    i0 = pl.multiple_of(j * ppb, 8)
-    _lik_idx_batched(pv_ref, table_ref, xi_s, yi_s, use_s, i0, ppb=ppb,
-                     wr=wr, cw=(128 if crop128 else wc),
-                     num_beams=num_beams, logical_rows=logical_rows,
-                     logical_cols=logical_cols)
-    return scr
-
-
-def _pack2_body(srcA, srcB, dstA, dstB, iA, iB, kA, kB, off_ref, uoff_ref,
-                pp_ref, table_ref, lik_scratch, *, wr, num_beams,
-                logical_rows, logical_cols, qu=None, check_rows=True, binu=None):
-    """Two particles, ONE [wr, 128] cell-pass evaluation: particle A's
-    disc occupies view lanes [0, 64), B's [64, 128) (view lane l maps to
-    grid column l + gofs[l]).  The ALU-bound per-cell pass is pure
-    geometry — it reads NOTHING from the window — so the windows are
-    never packed at all: the pass computes the log-odds INCREMENT on the
-    virtual packed coordinates, and only ``inc`` is rolled back to grid
-    columns (2 dynamic rolls per pair; packing the windows themselves
-    measured ~84 us/update of roll+select cost at 1,024 particles,
-    benchmarks/prof_pack.py).  The likelihood gathers straight from the
-    raw per-particle windows — full-window semantics, identical to the
-    unpacked kernel.  Every arithmetic op runs in the same order on the
-    same values as unpacked :func:`_cell_pass`; outputs agree to fma-
-    contraction (1-2 ulp)."""
-    r0A = pl.multiple_of(off_ref[iA], 8)
-    r0B = pl.multiple_of(off_ref[iB], 8)
-    uA = uoff_ref[iA]
-    uB = uoff_ref[iB]
-    xi_s, yi_s, _use_s, odds_s = lik_scratch
-    if dstA.dtype == jnp.bfloat16:
-        # load once as i32 sublane pairs: the likelihood gathers the
-        # packed form (half the rows + fold depth, bit-exact extract)
-        # and the f32 windows for the update add come from the same bits
-        wAp = pltpu.bitcast(srcA[pl.ds(r0A, wr), :], jnp.int32)
-        wBp = pltpu.bitcast(srcB[pl.ds(r0B, wr), :], jnp.int32)
-        wA = pltpu.bitcast(wAp, jnp.bfloat16).astype(jnp.float32)
-        wB = pltpu.bitcast(wBp, jnp.bfloat16).astype(jnp.float32)
-        _lik_gather_fold_packed(wAp, xi_s, yi_s, odds_s, kA, wrp=wr // 2,
-                                num_beams=num_beams)
-        _lik_gather_fold_packed(wBp, xi_s, yi_s, odds_s, kB, wrp=wr // 2,
-                                num_beams=num_beams)
-    else:
-        wA = srcA[pl.ds(r0A, wr), :].astype(jnp.float32)
-        wB = srcB[pl.ds(r0B, wr), :].astype(jnp.float32)
-
-        # likelihood phase B on the raw pre-update windows
-        _lik_gather_fold(wA, xi_s, yi_s, odds_s, kA, wr=wr, cw=128,
-                         num_beams=num_beams)
-        _lik_gather_fold(wB, xi_s, yi_s, odds_s, kB, wr=wr, cw=128,
-                         num_beams=num_beams)
-
-    lrow = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) < 64
-
-    def l2(a, b):
-        return jnp.where(lrow, a, b)
-
-    params = (l2(pp_ref[iA, 0], pp_ref[iB, 0]),   # cx
-              l2(pp_ref[iA, 1], pp_ref[iB, 1]),   # cy
-              None,
-              l2(pp_ref[iA, 3], pp_ref[iB, 3]),   # theta + angles0
-              None, None,
-              pp_ref[iA, 6], pp_ref[iA, 7])       # dphi, 1/dphi (shared)
-    gofs = l2(uA, uB - 64)      # view lane -> grid column offset
-    r0v = l2(r0A, r0B)
-    incp = _cell_pass(None, params, table_ref, wr=wr, cols=128,
-                      num_beams=num_beams, r0=r0v,
-                      logical_rows=logical_rows,
-                      logical_cols=logical_cols, c0=gofs,
-                      return_inc=True, qu=qu, binu=binu, check_rows=check_rows)
-
-    l64 = jax.lax.broadcasted_iota(jnp.int32, (wr, 128), 1) < 64
-    incA = pltpu.roll(jnp.where(l64, incp, 0.0), uA, 1)
-    incB = pltpu.roll(jnp.where(l64, 0.0, incp), uB - 64, 1)
-    woA = dstA.at[pl.ds(r0A, wr), :]
-    woB = dstB.at[pl.ds(r0B, wr), :]
-    woA[...] = (wA + incA).astype(dstA.dtype)
-    woB[...] = (wB + incB).astype(dstB.dtype)
-
-
-def _kernel_resident(off_ref, coff_ref, uoff_ref, pp_ref, pv_ref, table_ref,
-                     grid_in, lik_ref, grid_out, xi_s=None, yi_s=None,
-                     use_s=None, odds_s=None, *, wr, cols, wc, num_beams,
-                     logical_rows, logical_cols, ppb, crop128,
-                     pack2=False, qu=None, check_rows=True, binu=None):
-    """``ppb`` particles per grid program (statically unrolled).
-
-    Per-program overhead is the measured bottleneck of this kernel, not
-    compute: with BOTH passes stubbed out, 1,024 single-particle
-    programs still cost ~354 us at the headline config (~0.35 us of
-    dispatch/bookkeeping each) while the entire likelihood+integrate
-    math adds only ~33 us.  Batching 8 particles per program cuts the
-    program count 8x; the unrolled bodies run back-to-back without
-    re-entering the grid loop."""
-    j = pl.program_id(0)
-    scr = None if xi_s is None else (xi_s, yi_s, use_s, odds_s)
-    scr = _lik_prepare(pv_ref, table_ref, scr, j, ppb=ppb, wr=wr, wc=wc,
-                       crop128=crop128, num_beams=num_beams,
-                       logical_rows=logical_rows, logical_cols=logical_cols)
-    if pack2:
-        for k2 in range(ppb // 2):
-            kA, kB = 2 * k2, 2 * k2 + 1
-            iA, iB = j * ppb + kA, j * ppb + kB
-            _pack2_body(grid_in.at[iA], grid_in.at[iB], grid_out.at[iA],
-                        grid_out.at[iB], iA, iB, kA, kB, off_ref,
-                        uoff_ref, pp_ref, table_ref, scr, wr=wr,
-                        num_beams=num_beams, logical_rows=logical_rows,
-                        logical_cols=logical_cols, qu=qu, binu=binu,
-                        check_rows=check_rows)
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-        return
-    for k in range(ppb):
-        i = j * ppb + k
-        _resident_body(grid_in.at[i], grid_out.at[i], i, off_ref, coff_ref,
-                       uoff_ref, pp_ref, table_ref, lik_ref, k, wr=wr,
-                       cols=cols, wc=wc, num_beams=num_beams,
-                       logical_rows=logical_rows,
-                       logical_cols=logical_cols, ppb=ppb,
-                       crop128=crop128, lik_scratch=scr, qu=qu, binu=binu,
-                       check_rows=check_rows)
-    if scr is not None:
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-
-
-def _kernel_resident_anc(anc_ref, off_ref, coff_ref, uoff_ref, pp_ref,
-                         pv_ref, table_ref, grid_in, lik_ref, grid_out,
-                         xi_s=None, yi_s=None, use_s=None, odds_s=None, *,
-                         wr, cols, wc, num_beams, logical_rows,
-                         logical_cols, ppb, crop128, pack2=False,
-                         qu=None, check_rows=True, binu=None):
-    """Deferred-resample variant: particle i continues lineage
-    ``anc_ref[i]`` — the systematic-resample ancestor gather becomes an
-    index indirection here instead of a separate whole-map ``jnp.take``
-    (which costs ~141 us/step at 1,024 x 40 KB maps even behind a cond).
-    Reads ``grid_in[a]``, writes the full updated map to ``grid_out[i]``
-    (separate buffers — racing in-place lineage copies would corrupt).
-    The lineage copy is one whole-map vector copy; both an async-DMA copy
-    and split partial-band copies measured SLOWER at ppb=1 (440 / 411 vs
-    395 us/step — per-program DMA issue+wait doesn't overlap across grid
-    steps, and split stores defeat vectorization).  Batched like
-    :func:`_kernel_resident` (same measured per-program-overhead wall)."""
-    j = pl.program_id(0)
-    scr = None if xi_s is None else (xi_s, yi_s, use_s, odds_s)
-    scr = _lik_prepare(pv_ref, table_ref, scr, j, ppb=ppb, wr=wr, wc=wc,
-                       crop128=crop128, num_beams=num_beams,
-                       logical_rows=logical_rows, logical_cols=logical_cols)
-    if pack2:
-        for k2 in range(ppb // 2):
-            kA, kB = 2 * k2, 2 * k2 + 1
-            iA, iB = j * ppb + kA, j * ppb + kB
-            aA, aB = anc_ref[iA], anc_ref[iB]
-            grid_out[iA] = grid_in[aA]
-            grid_out[iB] = grid_in[aB]
-            _pack2_body(grid_in.at[aA], grid_in.at[aB], grid_out.at[iA],
-                        grid_out.at[iB], iA, iB, kA, kB, off_ref,
-                        uoff_ref, pp_ref, table_ref, scr, wr=wr,
-                        num_beams=num_beams, logical_rows=logical_rows,
-                        logical_cols=logical_cols, qu=qu, binu=binu,
-                        check_rows=check_rows)
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-        return
-    for k in range(ppb):
-        i = j * ppb + k
-        a = anc_ref[i]
-        grid_out[i] = grid_in[a]
-        _resident_body(grid_in.at[a], grid_out.at[i], i, off_ref, coff_ref,
-                       uoff_ref, pp_ref, table_ref, lik_ref, k, wr=wr,
-                       cols=cols, wc=wc, num_beams=num_beams,
-                       logical_rows=logical_rows,
-                       logical_cols=logical_cols, ppb=ppb,
-                       crop128=crop128, lik_scratch=scr, qu=qu, binu=binu,
-                       check_rows=check_rows)
-    if scr is not None:
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-
-
-def _kernel_hbm_anc(anc_ref, off_ref, coff_ref, uoff_ref, pp_ref, pv_ref,
-                    table_ref, grid_in, lik_ref, grid_out, win, sem_in,
-                    sem_out, sem_band, xi_s=None, yi_s=None, use_s=None,
-                    odds_s=None, *, wr, wc, num_beams, logical_rows,
-                    logical_cols, ppb, crop128, rows, qu=None,
-                    check_rows=True, binu=None):
-    """Deferred-lineage HBM kernel: the resample's map copy FUSED into the
-    update's own DMA schedule (particle.rs:78-105 + map.rs:71-145 in one
-    pass).
-
-    Particle i continues lineage ``anc_ref[i]``: its scan window is DMA'd
-    from ``grid_in[a]``, integrated in VMEM, and written to
-    ``grid_out[i]`` (separate buffers — no aliasing).  The rows OUTSIDE
-    the window are copied ``grid_in[a] -> grid_out[i]`` **HBM-to-HBM**,
-    never touching VMEM and with no dependency on compute, so they ride
-    the DMA engines under the ALU-bound window passes.  This replaces the
-    separate staged-CoW resample pass (a structural ~300 us/frame at the
-    0.02 m config, where weights are peaked enough that resampling fires
-    ~99.6% of scan frames) with copies that hide.
-
-    MEASURED OUTCOME (v5e, 0.02 m bench point — benchmarks/prof_anc.py):
-    correct but SLOWER than plain-kernel + staged CoW (1,033 vs 921
-    us/update; end-to-end 5,725 vs 5,935 ticks/s).  The band copies are
-    nearly free (+34 us) — the loss is that a lineage kernel cannot
-    alias its in/out grid buffers (duplicated ancestors would clobber
-    sources), and a non-aliased 100 MB output costs ~318 us by itself
-    (plain kernel: 828 us aliased vs 1,147 non-aliased, identical code).
-    Kept as an explicit opt-in (GridSlamConfig.resample_cow="deferred")
-    and as documentation of the measured dead end.
-
-    Band construction: DMA sizes must be static, so the two out-of-window
-    bands ``[0, r0)`` and ``[r0+wr, rows)`` (dynamic lengths) are covered
-    by two STATIC bands ``[0, rows-wr)`` and ``[wr, rows)``; the parts of
-    those bands inside the window are overwritten by the window write-back,
-    which therefore must start only after the bands land (sem_band wait
-    after compute — the bands have the whole compute phase to finish).
-    Requires ``wr >= rows - wr`` so the static bands are disjoint (no
-    two DMAs racing identical writes) and ``wc == cols`` (full-width
-    windows; column-cropped huge maps keep the staged-CoW pass).
-    """
-    band = rows - wr
-    j = pl.program_id(0)
-    n = pl.num_programs(0)
-    slot = j % 2
-
-    def in_copy(jj, s, k):
-        p_idx = jj * ppb + k
-        a = anc_ref[p_idx]
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        return pltpu.make_async_copy(
-            grid_in.at[a, pl.ds(rj, wr), :], win.at[s, k], sem_in.at[s, k])
-
-    def band_copies(jj, s, k):
-        p_idx = jj * ppb + k
-        a = anc_ref[p_idx]
-        return (
-            pltpu.make_async_copy(grid_in.at[a, pl.ds(0, band), :],
-                                  grid_out.at[p_idx, pl.ds(0, band), :],
-                                  sem_band.at[s, k, 0]),
-            pltpu.make_async_copy(grid_in.at[a, pl.ds(wr, band), :],
-                                  grid_out.at[p_idx, pl.ds(wr, band), :],
-                                  sem_band.at[s, k, 1]),
-        )
-
-    def out_copy(jj, s, k):
-        p_idx = jj * ppb + k
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        return pltpu.make_async_copy(
-            win.at[s, k], grid_out.at[p_idx, pl.ds(rj, wr), :],
-            sem_out.at[s, k])
-
-    def start_all(jj, s, k):
-        in_copy(jj, s, k).start()
-        if band > 0:
-            ba, bb = band_copies(jj, s, k)
-            ba.start()
-            bb.start()
-
-    @pl.when(j == 0)
-    def _():
-        for k in range(ppb):
-            start_all(0, 0, k)
-
-    # slot (j+1)%2's window buffers were written back by program j-1;
-    # those out-DMAs must land before the next in-DMAs overwrite them
-    @pl.when(j >= 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j - 1, (j - 1) % 2, k).wait()
-
-    @pl.when(j + 1 < n)
-    def _():
-        for k in range(ppb):
-            start_all(j + 1, (j + 1) % 2, k)
-
-    scr = None if xi_s is None else (xi_s, yi_s, use_s, odds_s)
-    scr = _lik_prepare(pv_ref, table_ref, scr, j, ppb=ppb, wr=wr, wc=wc,
-                       crop128=crop128, num_beams=num_beams,
-                       logical_rows=logical_rows, logical_cols=logical_cols)
-
-    for k in range(ppb):
-        i = j * ppb + k
-        in_copy(j, slot, k).wait()
-        r0 = pl.multiple_of(off_ref[i], 8)
-        _window_compute(win.at[slot, k], win.at[slot, k], i, k, r0, None,
-                        uoff_ref, pp_ref, table_ref, lik_ref, wr=wr,
-                        wc=wc, num_beams=num_beams,
-                        logical_rows=logical_rows,
-                        logical_cols=logical_cols, ppb=ppb,
-                        crop128=crop128, lik_scratch=scr, qu=qu, binu=binu,
-                        check_rows=check_rows)
-        if band > 0:
-            ba, bb = band_copies(j, slot, k)
-            ba.wait()
-            bb.wait()
-        out_copy(j, slot, k).start()
-
-    if scr is not None:
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-
-    @pl.when(j == n - 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j, slot, k).wait()
-
-
-def staged_lineage_plan(ancestors: Array):
-    """Host-side (traced) prep for :func:`_kernel_hbm_staged`: per-particle
-    stage slots, the unique-source list, and the staged count.
-
-    ``ancestors`` is the pending lineage (i32[P]).  Segments of equal
-    value (systematic resample output is non-decreasing; identity on
-    skip) become stage slots; a length-1 segment that is its own
-    ancestor (``anc[i] == i``) needs no staging at all — particle i
-    reads its own slot in place, which is sound because grid programs
-    run sequentially and no other program consumes slot i.  Unsorted
-    inputs stay CORRECT (a value split across segments is staged once
-    per segment — wasteful, never wrong; ``anc[i] == i`` positions are
-    in-place no matter where the value appears elsewhere, since every
-    OTHER consumer reads its own prologue-staged copy).
-
-    Returns (spos i32[P] — stage slot per particle, -1 = in-place;
-    usrc i32[P] — source map index per stage slot (tail unused);
-    count i32[1]).
-    """
-    anc = ancestors.astype(jnp.int32)
-    p = anc.shape[0]
-    idx = jnp.arange(p, dtype=jnp.int32)
-    prev = jnp.concatenate([jnp.full((1,), -1, jnp.int32), anc[:-1]])
-    nxt = jnp.concatenate([anc[1:], jnp.full((1,), -1, jnp.int32)])
-    first = anc != prev
-    lone_self = first & (anc != nxt) & (anc == idx)
-    staged_first = first & ~lone_self
-    srank = jnp.cumsum(staged_first.astype(jnp.int32)) - 1
-    spos = jnp.where(lone_self, jnp.int32(-1), srank)
-    usrc = jnp.zeros((p,), jnp.int32).at[
-        jnp.where(staged_first, srank, p)].set(anc, mode="drop")
-    count = srank[-1:] + 1
-    return spos, usrc, count
-
-
-def merge_segment_windows(ancestors: Array, r0: Array, u0: Array,
-                          cxy: Array, disc_half: int, wr: int,
-                          logical_rows: int, logical_cols: int,
-                          view_cols: int = 128):
-    """Collapse (r0, u0) window-placement variants across each
-    pending-lineage segment (host-side, traced): offspring adopt their
-    segment LEADER's window row origin / compute-view column origin
-    whenever the leader placement still covers their whole scan disc,
-    so the shared-window group key (stage slot, r0, u0) merges one
-    ancestor's offspring into ONE window DMA + roll instead of 2-4
-    variants (measured ~0.65 us per unique window at the 0.02 m config,
-    benchmarks/prof_uniq.py; the real lineage spread back-solved to
-    ~180 effective uniques vs ~11-40 actual ancestors).
-
-    Output-neutral and BITWISE exact under the coverage condition: the
-    cell pass's folded window offsets are exact f32 adds of
-    small-integer terms (see _cell_pass), so every absolute cell
-    computes identical values from either placement; with the disc
-    covered, both placements update the same cell set and keep the same
-    endpoints in-window.  ``disc_half`` bounds the ISM effect radius
-    (d + qu/2 + TOLERANCE/2 + 0.5 <= ceil(max_range_cells) + 2.1 <
-    disc_half) and the endpoint radius (d <= max_range_cells); beams
-    measured beyond ``max_range_m`` (real captures only) mark free
-    space to the window edge, so their tail cells follow the window
-    choice — the documented out-of-window deviation class (module
-    docstring); every bitwise-gated dataset has d <= max_range.
-    Non-covered offspring keep their own placement — correct, just
-    unmerged.  Segments are runs of equal ancestor values (the same
-    definition staged_lineage_plan uses), so leaders are each run's
-    lowest index — consistent with shared_window_plan's
-    lowest-index-fills invariant.
-
-    Returns (r0', u0') i32[P].
-    """
-    p = r0.shape[0]
-    anc32 = ancestors.astype(jnp.int32)
-    idxp = jnp.arange(p, dtype=jnp.int32)
-    segf = jnp.concatenate([jnp.ones((1,), bool), anc32[1:] != anc32[:-1]])
-    leader = jax.lax.associative_scan(
-        jnp.maximum, jnp.where(segf, idxp, -1))
-    fy = jnp.floor(cxy[:, 1])
-    fx = jnp.floor(cxy[:, 0])
-    dh = float(disc_half)
-    lo_r = jnp.maximum(fy - dh, 0.0)
-    hi_r = jnp.minimum(fy + dh, float(logical_rows - 1))
-    r0_l = r0[leader]
-    ok_r = ((r0_l.astype(jnp.float32) <= lo_r)
-            & (hi_r < (r0_l + wr).astype(jnp.float32)))
-    lo_c = jnp.maximum(fx - dh, 0.0)
-    hi_c = jnp.minimum(fx + dh, float(logical_cols - 1))
-    u0_l = u0[leader]
-    ok_c = ((u0_l.astype(jnp.float32) <= lo_c)
-            & (hi_c < (u0_l + view_cols).astype(jnp.float32)))
-    return (jnp.where(ok_r, r0_l, r0), jnp.where(ok_c, u0_l, u0))
-
-
-def shared_window_plan(spos: Array, r0: Array, u0: Array, nw: int):
-    """Host-side (traced) window dedup for :func:`_kernel_hbm_staged`'s
-    shared-window cache: particles whose pre-update window is the SAME
-    BYTES — same stage slot, same (8-aligned) window row origin, same
-    (8-quantized) compute-view roll — share one DMA + one roll.
-
-    Resampled lineages at the configs this kernel serves are extremely
-    concentrated (0.02 m: median N_eff ~11/1,024) and the sampled poses
-    of one ancestor's offspring differ by ~a cell, so the ~1,024 window
-    fetch+rolls collapse to a few dozen unique ones.
-
-    Returns (wsel i32[P] — shared-cache slot, -1 = private; wfill
-    i32[P] — 1 when this particle performs the window DMA + roll).  The
-    filler of each group is its LOWEST particle index (stable argsort),
-    so grid programs — which run in particle order — always fill a slot
-    before any sharer reads it.  In-place particles (``spos < 0``) own
-    unique maps and never share.
-
-    Cache slots go to the LARGEST groups first (deterministic
-    size-descending order, group key as tie-break): singleton groups
-    gain nothing from a slot (their one particle fills and reads it —
-    exactly the private path through the reserved per-buffer slots), so
-    they never take one, and when the lineage spreads past ``nw``
-    multi-particle groups (p90 frames at 0.02 m run ~100 unique
-    ancestors, tail ~300) the spilled work is the smallest groups'
-    (measured: first-come assignment cost ~8% e2e on tail frames).
-    """
-    p = spos.shape[0]
-    idx = jnp.arange(p, dtype=jnp.int32)
-    key = spos * 32768 + (r0 // 8) * 32 + u0 // 8
-    key = jnp.where(spos >= 0, key, 2**30 + idx)
-    order = jnp.argsort(key, stable=True)
-    ks = key[order]
-    first = jnp.concatenate([jnp.ones((1,), bool), ks[1:] != ks[:-1]])
-    gid = jnp.cumsum(first.astype(jnp.int32)) - 1
-    sizes = jnp.zeros((p,), jnp.int32).at[gid].add(1)
-    shareable = jnp.zeros((p,), bool).at[gid].set(ks < 2**30)
-    eligible = shareable & (sizes >= 2)
-    # rank groups: eligible first, size descending, gid as tie-break
-    # (p * (p + 2) fits i32 comfortably at production particle counts)
-    grank = jnp.argsort(jnp.where(eligible, -sizes * (p + 1), p * (p + 2))
-                        + jnp.arange(p, dtype=jnp.int32), stable=True)
-    slot_of_group = jnp.zeros((p,), jnp.int32).at[grank].set(
-        jnp.arange(p, dtype=jnp.int32))
-    slot_of_group = jnp.where(eligible & (slot_of_group < nw),
-                              slot_of_group, -1)
-    slot_sorted = slot_of_group[gid]
-    fill_sorted = (first | (slot_sorted < 0)).astype(jnp.int32)
-    wsel = jnp.zeros((p,), jnp.int32).at[order].set(slot_sorted)
-    wfill = jnp.zeros((p,), jnp.int32).at[order].set(fill_sorted)
-    return wsel, wfill
-
-
-def _cached_body(w_out, i, k, r0, uoff_ref, pp_ref, table_ref, lik_ref,
-                 wcache, cslot, fill, *, wr, num_beams, logical_rows,
-                 logical_cols, lik_scratch, qu, check_rows=True, binu=None):
-    """Shared-window-cache variant of :func:`_window_compute` (pair-mode
-    crop128, full-width windows): the pre-rolled i32 sublane-pair window
-    lives in ``wcache[cslot]``.  Fillers (``fill == 1``) produce it from
-    their just-DMA'd ``w_out`` bytes — ONE bitcast+roll for the whole
-    group; sharers skip both the DMA and the roll and read the cache.
-    Every particle still writes its own full [wr, wc] window back to
-    ``w_out`` (its pose differs, so its update differs), keeping the
-    out-DMA path identical to the uncached kernel."""
-    u0 = uoff_ref[i]
-
-    @pl.when(fill == 1)
-    def _():
-        pairs = pltpu.bitcast(w_out[...], jnp.int32)  # [wr//2, wc]
-        wcache[cslot] = pltpu.roll(pairs, -u0, 1)
-
-    rolledp = wcache[cslot]
-    w32 = pltpu.bitcast(rolledp[:, :128], jnp.bfloat16).astype(jnp.float32)
-    xi_s, yi_s, _use_s, odds_s = lik_scratch
-    _lik_gather_fold_packed(rolledp[:, :128], xi_s, yi_s, odds_s, k,
-                            wrp=wr // 2, num_beams=num_beams)
-    params = _params(pp_ref, i)
-    out = _cell_pass(w32, params, table_ref, wr=wr, cols=128,
-                     num_beams=num_beams, r0=r0,
-                     logical_rows=logical_rows, logical_cols=logical_cols,
-                     c0=u0, qu=qu, binu=binu, check_rows=check_rows)
-    out_p = pltpu.bitcast(out.astype(jnp.bfloat16), jnp.int32)
-    w_out[...] = pltpu.bitcast(
-        pltpu.roll(jnp.concatenate([out_p, rolledp[:, 128:]], axis=1),
-                   u0, 1), jnp.bfloat16)
-
-
-def _kernel_hbm_staged(spos_ref, usrc_ref, cnt_ref, *rest, wr, wc,
-                       num_beams, logical_rows, logical_cols, ppb,
-                       crop128, rows, qu=None, nw=0, check_rows=True, binu=None):
-    """Deferred-lineage HBM kernel WITH in-place aliasing — the design
-    :func:`_kernel_hbm_anc` measured out of reach (its docstring: a
-    lineage kernel cannot alias its in/out grid buffers, and the
-    non-aliased 100 MB output alone cost ~318 us).  The new information
-    that unlocks aliasing: resampled lineages are extremely CONCENTRATED
-    at the configs where the resample cost matters (0.02 m: median
-    N_eff ~11/1,024, so a handful of unique ancestors serve the whole
-    set).  Program 0 therefore copies the unique ancestor maps
-    (typically ~11-40, dynamically counted) to an HBM ``stage`` buffer
-    BEFORE any program writes; after that every read either comes from
-    ``stage`` (lineage particles) or from the particle's OWN slot
-    (``anc[i] == i`` singletons, read by program i before it overwrites
-    it — grid programs run sequentially), so in-place writes can never
-    clobber data a later program still needs, and
-    ``input_output_aliases`` keeps the whole-set output free.
-
-    Row bands outside the window are ``stage -> grid_out`` copies using
-    the same disjoint static-band construction as ``_kernel_hbm_anc``
-    (bands [0, rows-wr) and [wr, rows); the window write-back overwrites
-    the overlap, so it starts only after the bands land); in-place
-    singletons skip the bands entirely — their out-of-window rows are
-    already correct.  Geometry gate: :func:`supports_deferred_hbm`
-    (full-width windows, ``rows - wr <= wr``).
-
-    Parity surface: ParticleFilter::resample's map clone
-    (slamrs/slam/src/grid/particle.rs:78-105) fused into
-    GridMapSlam::update's weight+integrate pass (slam.rs:45-75).
-
-    ``nw > 0`` enables the SHARED-WINDOW cache (bf16 + crop128 + even
-    ``wr`` geometries): host-planned groups of particles whose window
-    bytes are identical (:func:`shared_window_plan`) do ONE window DMA
-    and ONE packed roll for the whole group — the filler (lowest index)
-    lands it in a VMEM cache of pre-rolled i32 sublane-pairs, sharers
-    skip both.  Private particles (in-place, overflow) run the same
-    uniform body through reserved per-buffer cache slots ``nw + k``
-    (filled and consumed within one program — no cross-program reuse).
-    The roll offsets are 8-quantized by the caller so group members
-    share them exactly (output-neutral: the 128-lane compute view keeps
-    the whole scan disc either way, see fused_update).
-    """
-    if nw:
-        wsel_ref, wfill_ref = rest[0], rest[1]
-        rest = rest[2:]
-    (off_ref, coff_ref, uoff_ref, pp_ref, pv_ref, table_ref, grid_in,
-     lik_ref, grid_out, stage, win, sem_in, sem_out, sem_band, sem_stage,
-     *tail) = rest
-    if nw:
-        wcache = tail[-1]
-        tail = tail[:-1]
-    xi_s, yi_s, use_s, odds_s = tail if tail else (None, None, None, None)
-    band = rows - wr
-    j = pl.program_id(0)
-    n = pl.num_programs(0)
-    slot = j % 2
-
-    def stage_copy(r):
-        return pltpu.make_async_copy(grid_in.at[usrc_ref[r]], stage.at[r],
-                                     sem_stage)
-
-    @pl.when(j == 0)
-    def _():
-        # stage the unique ancestor maps before ANY program writes; all
-        # window/band reads below come from ``stage`` or from a slot's
-        # own (not-yet-overwritten) data
-        cnt = cnt_ref[0]
-        jax.lax.fori_loop(
-            0, cnt, lambda r, c: (stage_copy(r).start(), c)[1], 0,
-            unroll=False)
-        jax.lax.fori_loop(
-            0, cnt, lambda r, c: (stage_copy(r).wait(), c)[1], 0,
-            unroll=False)
-
-    def in_copy_start(jj, s, k):
-        p_idx = jj * ppb + k
-        sp = spos_ref[p_idx]
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        # sharers (wfill == 0) reuse the cached pre-rolled window of
-        # their group's filler — no DMA at all
-        fill = (wfill_ref[p_idx] == 1) if nw else True
-
-        @pl.when((sp >= 0) & fill if nw else sp >= 0)
-        def _():
-            pltpu.make_async_copy(stage.at[sp, pl.ds(rj, wr), :],
-                                  win.at[s, k], sem_in.at[s, k]).start()
-
-        @pl.when(sp < 0)  # in-place particles always fill (plan invariant)
-        def _():
-            pltpu.make_async_copy(grid_in.at[p_idx, pl.ds(rj, wr), :],
-                                  win.at[s, k], sem_in.at[s, k]).start()
-
-    def in_copy_wait(jj, s, k):
-        p_idx = jj * ppb + k
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-
-        # both descriptors move the same [wr, wc] bytes; wait via the
-        # own-slot one regardless of which start fired
-        def w():
-            pltpu.make_async_copy(grid_in.at[p_idx, pl.ds(rj, wr), :],
-                                  win.at[s, k], sem_in.at[s, k]).wait()
-
-        if nw:
-            pl.when(wfill_ref[p_idx] == 1)(w)
-        else:
-            w()
-
-    def band_copies(jj, s, k):
-        p_idx = jj * ppb + k
-        sp = spos_ref[p_idx]
-        return (
-            pltpu.make_async_copy(stage.at[sp, pl.ds(0, band), :],
-                                  grid_out.at[p_idx, pl.ds(0, band), :],
-                                  sem_band.at[s, k, 0]),
-            pltpu.make_async_copy(stage.at[sp, pl.ds(wr, band), :],
-                                  grid_out.at[p_idx, pl.ds(wr, band), :],
-                                  sem_band.at[s, k, 1]),
-        )
-
-    def out_copy(jj, s, k):
-        p_idx = jj * ppb + k
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        return pltpu.make_async_copy(
-            win.at[s, k], grid_out.at[p_idx, pl.ds(rj, wr), :],
-            sem_out.at[s, k])
-
-    def start_all(jj, s, k):
-        in_copy_start(jj, s, k)
-        if band > 0:
-            @pl.when(spos_ref[jj * ppb + k] >= 0)
-            def _():
-                ba, bb = band_copies(jj, s, k)
-                ba.start()
-                bb.start()
-
-    @pl.when(j == 0)
-    def _():
-        for k in range(ppb):
-            start_all(0, 0, k)
-
-    # slot (j+1)%2's window buffers were written back by program j-1;
-    # those out-DMAs must land before the next in-DMAs overwrite them
-    @pl.when(j >= 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j - 1, (j - 1) % 2, k).wait()
-
-    @pl.when(j + 1 < n)
-    def _():
-        for k in range(ppb):
-            start_all(j + 1, (j + 1) % 2, k)
-
-    scr = None if xi_s is None else (xi_s, yi_s, use_s, odds_s)
-    scr = _lik_prepare(pv_ref, table_ref, scr, j, ppb=ppb, wr=wr, wc=wc,
-                       crop128=crop128, num_beams=num_beams,
-                       logical_rows=logical_rows, logical_cols=logical_cols)
-
-    for k in range(ppb):
-        i = j * ppb + k
-        in_copy_wait(j, slot, k)
-        r0 = pl.multiple_of(off_ref[i], 8)
-        if nw:
-            ws = wsel_ref[i]
-            cslot = jnp.where(ws >= 0, ws, nw + k)
-            _cached_body(win.at[slot, k], i, k, r0, uoff_ref, pp_ref,
-                         table_ref, lik_ref, wcache, cslot, wfill_ref[i],
-                         wr=wr, num_beams=num_beams,
-                         logical_rows=logical_rows,
-                         logical_cols=logical_cols, lik_scratch=scr,
-                         qu=qu, binu=binu, check_rows=check_rows)
-        else:
-            _window_compute(win.at[slot, k], win.at[slot, k], i, k, r0,
-                            None, uoff_ref, pp_ref, table_ref, lik_ref,
-                            wr=wr, wc=wc, num_beams=num_beams,
-                            logical_rows=logical_rows,
-                            logical_cols=logical_cols, ppb=ppb,
-                            crop128=crop128, lik_scratch=scr, qu=qu, binu=binu,
-                            check_rows=check_rows)
-        if band > 0:
-            @pl.when(spos_ref[i] >= 0)
-            def _():
-                ba, bb = band_copies(j, slot, k)
-                ba.wait()
-                bb.wait()
-        out_copy(j, slot, k).start()
-
-    if scr is not None:
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-
-    @pl.when(j == n - 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j, slot, k).wait()
-
-
-def _kernel_hbm(off_ref, coff_ref, uoff_ref, pp_ref, pv_ref, table_ref,
-                grid_in, lik_ref, grid_out, win, sem_in, sem_out,
-                xi_s=None, yi_s=None, use_s=None, odds_s=None, *, wr, wc,
-                num_beams, logical_rows, logical_cols, ppb, crop128,
-                qu=None, check_rows=True, binu=None):
-    """HBM-grid variant: the per-particle window is BOTH row- and
-    column-cropped ([wr, wc] with a 128-aligned column offset), so huge
-    maps (config 3: 1000x1024 cells) move only the scan-disc
-    neighborhood through HBM instead of full-width row bands.
-
-    ``ppb`` particles per program, double-buffered at PROGRAM
-    granularity: program j starts all ppb window DMAs for program j+1
-    before computing on its own batch.  At ppb=1 the kernel was
-    DMA-LATENCY bound, not bandwidth bound (stubbing out both compute
-    passes left step time unchanged at ~1.3 ms for 1,024 programs);
-    issuing ppb copies back-to-back overlaps their latencies on the DMA
-    engines and cuts the per-program bookkeeping 8x."""
-    j = pl.program_id(0)
-    n = pl.num_programs(0)
-    slot = j % 2
-
-    def in_copy(jj, s, k):
-        p_idx = jj * ppb + k
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        cj = pl.multiple_of(coff_ref[p_idx], 128)
-        return pltpu.make_async_copy(
-            grid_in.at[p_idx, pl.ds(rj, wr), pl.ds(cj, wc)], win.at[s, k],
-            sem_in.at[s, k])
-
-    def out_copy(jj, s, k):
-        p_idx = jj * ppb + k
-        rj = pl.multiple_of(off_ref[p_idx], 8)
-        cj = pl.multiple_of(coff_ref[p_idx], 128)
-        return pltpu.make_async_copy(
-            win.at[s, k], grid_out.at[p_idx, pl.ds(rj, wr), pl.ds(cj, wc)],
-            sem_out.at[s, k])
-
-    @pl.when(j == 0)
-    def _():
-        for k in range(ppb):
-            in_copy(0, 0, k).start()
-
-    # slot (j+1)%2 was written back by program j-1; its out-DMAs must
-    # land before the next in-DMAs overwrite the buffers
-    @pl.when(j >= 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j - 1, (j - 1) % 2, k).wait()
-
-    @pl.when(j + 1 < n)
-    def _():
-        for k in range(ppb):
-            in_copy(j + 1, (j + 1) % 2, k).start()
-
-    # batched-lik phase A needs no window data — it runs while this
-    # program's in-DMAs are still in flight
-    scr = None if xi_s is None else (xi_s, yi_s, use_s, odds_s)
-    scr = _lik_prepare(pv_ref, table_ref, scr, j, ppb=ppb, wr=wr, wc=wc,
-                       crop128=crop128, num_beams=num_beams,
-                       logical_rows=logical_rows, logical_cols=logical_cols)
-
-    for k in range(ppb):
-        i = j * ppb + k
-        in_copy(j, slot, k).wait()
-        r0 = pl.multiple_of(off_ref[i], 8)
-        c0 = pl.multiple_of(coff_ref[i], 128)
-        # the shared window compute (optionally rolled to a 128-lane
-        # robot-centered view — DMA offsets must stay 128-aligned,
-        # vector rolls need not) runs in the DMA'd scratch in place
-        _window_compute(win.at[slot, k], win.at[slot, k], i, k, r0, c0,
-                        uoff_ref, pp_ref, table_ref, lik_ref, wr=wr,
-                        wc=wc, num_beams=num_beams,
-                        logical_rows=logical_rows,
-                        logical_cols=logical_cols, ppb=ppb,
-                        crop128=crop128, lik_scratch=scr, qu=qu, binu=binu,
-                        check_rows=check_rows)
-        out_copy(j, slot, k).start()
-
-    if scr is not None:
-        _lik_finish_batched(odds_s, use_s, lik_ref)
-
-    @pl.when(j == n - 1)
-    def _():
-        for k in range(ppb):
-            out_copy(j, slot, k).wait()
-
-
-@functools.partial(jax.jit, static_argnames=("spec", "num_beams",
-                                             "max_range_m", "resident",
-                                             "interpret", "pack2",
-                                             "hbm_lineage"))
-def fused_update(grids: Array, poses: Array, angles0: Array,
-                 distances: Array, valid: Array, present: Array,
-                 spec: GridSpec2D, num_beams: int, max_range_m: float,
-                 resident: bool = True, interpret: bool = False,
-                 ancestors: Array | None = None,
-                 dphi: Array | None = None,
-                 pack2: bool | None = None,
-                 hbm_lineage: str = "staged"):
-    """One RBPF grid update for all particles.
-
-    Args:
-      grids: [P, H, Wp] log-odds (f32 or bf16); Wp MUST be a multiple of
-        128 (pad the grid's column axis; padded cells are never read as
-        long as the robot + scan range stay inside the logical grid).
-      poses: [P, 3] world poses (sampled successor poses).
-      angles0: scalar first-beam angle (uniform 1-deg table assumed).
-      distances/valid/present: [B] shared scan.
-      ancestors: optional i32[P] lineage indices (deferred systematic
-        resample): particle i reads map ``grids[ancestors[i]]``.  Only
-        supported for ``resident=True`` (HBM grids would pay full-grid
-        streaming for the lineage copy; gather those with ``jnp.take``).
-      dphi: scalar beam spacing in radians (defaults to a full-circle
-        table, 2*pi/num_beams — exact for every reference config).
-    Returns:
-      (grids', log_lik [P]) — log p(z | x_p, m_p) per particle, and the
-      per-particle map with the scan integrated.
-    """
-    p, rows, cols = grids.shape
-    assert cols % 128 == 0, "grid column axis must be padded to 128"
-    assert num_beams <= 383, "beam table gather covers bins [0, 384) only"
+        nb_f = _TWO_PI * inv_dphi
+        b0 = phi * inv_dphi - t * inv_dphi
+        b0 = b0 - nb_f * jnp.floor(b0 * (dphi * (1.0 / _TWO_PI)))
+        bins_f = _round_half_even(b0)
+        wrap = bins_f >= nb_f - 0.5
+        absent = (bins_f > num_beams - 1) & (~wrap)
+        bins_f = jnp.where(wrap, 0.0, bins_f)
+        bins_f = jnp.where(absent, float(num_beams), bins_f)
+        bins = bins_f.astype(jnp.int32)
+    d_enc = lookup(bins)
+    was_hit = d_enc > 0.0
+    pres = d_enc != 0.0  # +-0.0 -> absent (IEEE: -0.0 == 0.0)
+    d = jnp.abs(d_enc)
+    half = TOLERANCE_CELLS / 2.0
+    dm = jnp.maximum(d - half, 0.0)
+    a_sq = jnp.where(was_hit, dm * dm, d * d)
+    dp = d + half
+    b_sq = jnp.where(was_hit, dp * dp, -1.0)
+    inc = jnp.where(r2 < a_sq, L_FREE,
+                    jnp.where(r2 <= b_sq, L_OCCUPIED, 0.0))
+    # multiplicity compensation: beams-per-cell density near the robot
+    dens = jnp.maximum(1.0, div(jnp.ones_like(r), jnp.maximum(r, 0.5)
+                                * dphi))
+    inc = jnp.where(pres, inc * dens, 0.0)
+    # no log-odds clamp: unbounded growth matches the reference (see the
+    # ops.grid LOGODDS_CLAMP note)
+    return win + inc
+
+
+def _endpoint_log_lik(grids: Array, cxy: Array, theta: Array,
+                      table: Array, spec: GridSpec2D,
+                      num_beams: int) -> Array:
+    """Exact per-beam endpoint likelihood (map.rs:113-145) -> f32 [P],
+    one [P, B] gather from the pre-update maps.  Endpoints outside the
+    grid are skipped, as the reference's ``is_valid`` check does."""
+    p = grids.shape[0]
+    d_b = table[1, :num_beams]
+    ca = table[2, :num_beams]
+    sa = table[3, :num_beams]
+    use = table[4, :num_beams] > 0.5
+    ct = jnp.cos(theta)[:, None]
+    st = jnp.sin(theta)[:, None]
+    cx = cxy[:, 0:1]
+    cy = cxy[:, 1:2]
+    ex = cx + (ct * ca - st * sa) * d_b
+    ey = cy + (st * ca + ct * sa) * d_b
+    use = use & ((ex >= 0.0) & (ey >= 0.0) & (ex < float(spec.cols))
+                 & (ey < float(spec.rows)))
+    xi = jnp.where(use, jnp.floor(ex).astype(jnp.int32), 0)
+    yi = jnp.where(use, jnp.floor(ey).astype(jnp.int32), 0)
+    odds = grids[jnp.arange(p)[:, None], yi, xi].astype(jnp.float32)
+    p_end = 1.0 - 1.0 / (1.0 + jnp.exp(odds))
+    mix = Z_HIT * p_end + (1.0 - Z_HIT) / SENSOR_MAXDIST
+    factor = jnp.where(odds == 0.0, 1.0 / SENSOR_MAXDIST, mix)
+    return jnp.sum(jnp.where(use, jnp.log(factor), 0.0), axis=-1)
+
+
+def _prepare(grids, poses, angles0, distances, valid, present, spec,
+             num_beams, max_range_m, dphi):
+    """Shared set-up of the production formulations: grid-unit poses,
+    the beam table, per-particle scalars [P, 8] (cx, cy, t, dphi,
+    1/dphi, then zeros up to a power-of-two row for the kernel's block),
+    window origins and the likelihood."""
+    p = grids.shape[0]
     if dphi is None:
-        dphi = 2.0 * pymath.pi / num_beams
+        dphi = _TWO_PI / num_beams
     binu = static_dphi(dphi)
     dphi = jnp.asarray(dphi, jnp.float32)
-    wr = window_rows(spec, max_range_m)
-    wr = min(wr, rows - rows % 8 if rows % 8 else rows)
-    # measurement hook (benchmarks/prof_merge.py wrplus leg): extra
-    # window rows on the lineage path.  window_rows is exactly TIGHT
-    # against a particle's OWN disc under floor8, so same-ancestor
-    # offspring (poses a few cells apart) rarely satisfy
-    # merge_segment_windows' row-coverage condition — slack rows trade
-    # ~wrplus/wr more window DMA+compute for collapsing those window
-    # variants into one shared fill each.
-    if _WRPLUS and ancestors is not None and not resident:
-        wr = min(wr + _WRPLUS, rows - rows % 8 if rows % 8 else rows)
-    # HBM windows are column-cropped too: DMA slices must start at
-    # 128-aligned columns (Mosaic tiling proof), so the window is 2
-    # aligned 128-col blocks covering any disc up to 128 cells wide.
-    # When the disc also fits 128 lanes WITH margin, the kernel computes
-    # on a dynamically ROLLED 128-lane view of that window (crop128) —
-    # the ALU-bound passes then touch half the lanes.
-    disc_half = (int(pymath.ceil(max_range_m / spec.resolution))
-                 + ADDITIONAL_STEPS + 1)
-    wc = cols if (cols <= 256 or disc_half > 64) else 256
-    crop128 = wc >= 256 and 2 * disc_half + 1 + 8 <= 128
-
     pos = jnp.array([spec.position_x, spec.position_y], jnp.float32)
     cxy = (poses[:, 0:2] - pos) / spec.resolution
     theta = poses[:, 2]
-    pp = _pp_table(cxy, theta, angles0, dphi, p, binu)
-
-    # window row offset: center the disc, clamp, 8-align
-    r0 = jnp.round(cxy[:, 1]).astype(jnp.int32) - wr // 2
-    r0 = jnp.clip(r0, 0, max(rows - wr, 0))
-    r0 = (r0 // 8) * 8
-
-    # particles per program: per-program dispatch overhead (~0.35 us
-    # resident, ~1.3 us with window DMAs) dominates this kernel's actual
-    # math — see _kernel_resident docstring.  8 divides every production
-    # particle count; odd counts fall back to one particle per program.
-    # Big sets batch 16/program (measured another ~2% at 1,024; 32 gave
-    # no more and doubles Mosaic compile time).
-    ppb = 16 if (p % 16 == 0 and p >= 512) else 8 if p % 8 == 0 else 1
-
-    # lane-pack two particles per compute view where the geometry allows
-    # (0.05 m-class: the disc uses 47 of 128 lanes) — resident kernels
-    # only; pack2=False pins the unpacked formulation for A/B tests
-    pk2 = (resident
-           and supports_pack2(spec, max_range_m, cols, wc, crop128, ppb)
-           if pack2 is None else bool(pack2))
-    if pk2:
-        assert resident and supports_pack2(spec, max_range_m, cols, wc,
-                                           crop128, ppb)
-
-    # window column offset (128-block aligned): start one block left of
-    # the robot's block when the robot sits in its left half, so the
-    # disc margin is >= 64 cells on both sides
-    ccol = jnp.round(cxy[:, 0]).astype(jnp.int32)
-    blk = ccol // 128
-    c0 = (blk - jnp.where(ccol % 128 < 64, 1, 0)) * 128
-    c0 = jnp.clip(c0, 0, max(cols - wc, 0))
-    if pk2:
-        # pack2: u0 is the grid column of the particle's 64-lane half
-        # (roll offset); disc_half <= 31 guarantees coverage at clamps
-        u0 = jnp.clip(ccol - 32, 0, 64)
-    else:
-        # crop128: in-window column of the robot-centered 128-lane
-        # compute view (the kernel rolls the window left by u0 and
-        # computes on lanes [0, 128) = grid columns [c0+u0, c0+u0+128))
-        u0 = jnp.clip(ccol - c0 - 64, 0, wc - 128)
-
-    deferred = ancestors is not None
-    staged = deferred and not resident and hbm_lineage == "staged"
-    # shared-window cache (staged HBM kernel, pair-mode crop128 only):
-    # round the compute-view roll to the nearest 8 so offspring of one
-    # ancestor share window bytes AND roll exactly.  Output-neutral:
-    # crop128's disc gate (2*disc_half + 9 <= 128 => disc_half <= 59)
-    # keeps the robot within view lanes [60, 68] after rounding, so the
-    # whole scan disc still fits lanes [0, 128) and every grid cell
-    # computes the identical update from either view.
-    sharewin = (staged and crop128 and grids.dtype == jnp.bfloat16
-                and wr % 2 == 0 and ppb >= 8)
-    nw = _SHAREWIN_SLOTS if sharewin else 0
-    if sharewin:
-        u0 = jnp.clip((u0 + 4) // 8 * 8, 0, wc - 128)
-        if not _NOMERGE:
-            # collapse one ancestor's offspring to ONE window DMA + roll
-            # (see merge_segment_windows' docstring for the exactness
-            # argument); c0 == 0 here (wc == cols), so u0 IS the view
-            # origin.  Scans with any beam measured beyond max_range
-            # (real long-range captures only) keep their own placements:
-            # such beams mark free space to the WINDOW EDGE, so merged
-            # offspring would trace the leader's window and the
-            # out-of-window deviation class widens from the 8-cell roll
-            # rounding to tens of cells (ADVICE r4) — the merge is only
-            # applied when every present beam's disc is window-covered.
-            max_range_cells = max_range_m / spec.resolution
-            has_long = jnp.any(
-                present & (distances / spec.resolution
-                           > max_range_cells))
-            r0m, u0m = merge_segment_windows(ancestors, r0, u0, cxy,
-                                             disc_half, wr, spec.rows,
-                                             spec.cols)
-            r0 = jnp.where(has_long, r0, r0m)
-            u0 = jnp.where(has_long, u0, u0m)
-
-    # per-particle VECTOR params for the batched-lik phase A (VMEM,
-    # f32): cx, cy, cos/sin theta, window row offset, and the compute
-    # view's effective column origin (c0 is 0 whenever wc == cols, so
-    # the same formula covers full-width windows and resident slices).
-    # Under pack2 the likelihood gathers from the RAW per-particle
-    # windows (full-width, so ceff = c0 = 0 falls out of the generic
-    # formula); u0 is only the pack roll offset.
-    ceff = (c0 + u0) if crop128 else c0
+    table = encode_beam_table(distances / spec.resolution, valid, present,
+                              angles0, dphi,
+                              length=table_len(num_beams, binu))
+    t = theta + angles0
+    if binu is not None:
+        t = t * jnp.float32(1.0 / binu) - 0.5
+    inv_dphi = 1.0 / dphi
     zero = jnp.zeros((p,), jnp.float32)
-    pv = jnp.stack([cxy[:, 0], cxy[:, 1],
-                    jnp.cos(theta), jnp.sin(theta),
-                    r0.astype(jnp.float32), ceff.astype(jnp.float32),
-                    zero, zero], axis=-1)
+    par = jnp.stack([cxy[:, 0], cxy[:, 1], t,
+                     jnp.broadcast_to(dphi, (p,)),
+                     jnp.broadcast_to(inv_dphi, (p,)), zero, zero, zero],
+                    axis=-1)
+    r0, c0 = crop_origin(cxy, spec, max_range_m)
+    lik = _endpoint_log_lik(grids, cxy, theta, table, spec, num_beams)
+    return binu, table, par, r0, c0, lik
 
-    # packed-row gather quantum (static): bins <= 381 always here (the
-    # 384-bin assert above); d snaps to qu cells in the cell pass — the
-    # fused path's documented quantization (<= half a quantum per ISM
-    # interval bound; 1/8 cell at reference ranges)
-    qu = (pack3_quantum(max_range_m / spec.resolution)
-          if num_beams <= 381 else None)
-    table = encode_beam_table(distances / spec.resolution, valid,
-                              present, angles0, dphi, pack_quantum=qu)
 
-    # the cell pass's row-bound select is statically elidable whenever
-    # the physical row count has no padding past the logical rows: every
-    # window row slice satisfies r0 + wr <= rows (r0 clamped above), so
-    # wy < rows <= logical_rows always.  tiles.py's band-padded maps
-    # (rows_pad > logical band rows) keep the default check.
-    chk_rows = rows > spec.rows
+def fused_update_xla(grids: Array, poses: Array, angles0: Array,
+                     distances: Array, valid: Array, present: Array,
+                     spec: GridSpec2D, num_beams: int, max_range_m: float,
+                     dphi=None):
+    """Plain production update: per particle, the disc-box window is
+    sliced, passed through :func:`_cell_pass` and written back.
 
-    if deferred and not resident:
-        # fused-lineage HBM kernels: full-width windows + disjoint static
-        # row bands only (see kernel docstrings); callers gate
-        assert wc == cols, "deferred HBM lineage needs full-width windows"
-        assert rows - wr <= wr, "deferred HBM lineage needs wr >= rows-wr"
-        if staged:
-            kernel = functools.partial(
-                _kernel_hbm_staged, wr=wr, wc=wc, num_beams=num_beams,
-                logical_rows=spec.rows, logical_cols=spec.cols, ppb=ppb,
-                crop128=crop128, rows=rows, qu=qu, binu=binu, nw=nw,
-                check_rows=chk_rows)
-        else:
-            kernel = functools.partial(
-                _kernel_hbm_anc, wr=wr, wc=wc, num_beams=num_beams,
-                logical_rows=spec.rows, logical_cols=spec.cols, ppb=ppb,
-                crop128=crop128, rows=rows, qu=qu, binu=binu, check_rows=chk_rows)
-    elif deferred:
-        kernel = functools.partial(
-            _kernel_resident_anc, wr=wr, cols=cols, wc=wc,
-            num_beams=num_beams, logical_rows=spec.rows,
-            logical_cols=spec.cols, ppb=ppb, crop128=crop128, pack2=pk2,
-            qu=qu, binu=binu, check_rows=chk_rows)
-    elif resident:
-        kernel = functools.partial(
-            _kernel_resident, wr=wr, cols=cols, wc=wc,
-            num_beams=num_beams, logical_rows=spec.rows,
-            logical_cols=spec.cols, ppb=ppb, crop128=crop128, pack2=pk2,
-            qu=qu, binu=binu, check_rows=chk_rows)
-    else:
-        kernel = functools.partial(
-            _kernel_hbm, wr=wr, wc=wc, num_beams=num_beams,
-            logical_rows=spec.rows, logical_cols=spec.cols, ppb=ppb,
-            crop128=crop128, qu=qu, binu=binu, check_rows=chk_rows)
-    space = pltpu.VMEM if resident else pl.ANY
-    if resident:
-        scratch = []
-    else:
-        scratch = [
-            pltpu.VMEM((2, ppb, wr, wc), grids.dtype),  # double-buffered
-            pltpu.SemaphoreType.DMA((2, ppb)),
-            pltpu.SemaphoreType.DMA((2, ppb)),
-        ]
-        if deferred:
-            scratch.append(pltpu.SemaphoreType.DMA((2, ppb, 2)))
-        if staged:
-            scratch.append(pltpu.SemaphoreType.DMA)  # stage prologue
-    if ppb >= 8:
-        # batched-lik scratch (xi/yi/use/odds): phase A writes per-beam
-        # endpoint indices for all ppb particles, phase C reads them
-        n_chunks = -(-num_beams // 128)
-        scratch += [pltpu.VMEM((ppb, 128 * n_chunks), jnp.float32)
-                    for _ in range(4)]
-    if sharewin:
-        # pre-rolled i32 sublane-pair window cache: nw shared slots +
-        # ppb reserved private slots (~64 KB each; <= 8 MB total)
-        scratch.append(pltpu.VMEM((nw + ppb, wr // 2, wc), jnp.int32))
+    Args:
+      grids: [P, H, W] log-odds (f32 or bf16), W >= spec.cols (cells
+        past the logical grid are never touched).
+      poses: [P, 3] world poses (sampled successor poses).
+      angles0: scalar first-beam angle; distances/valid/present: [B].
+      dphi: beam spacing in radians — a Python float selects the static
+        bin pipeline; default 2*pi/num_beams.
+    Returns:
+      (grids', log_lik [P]).
+    """
+    binu, table, par, r0, c0, lik = _prepare(
+        grids, poses, angles0, distances, valid, present, spec, num_beams,
+        max_range_m, dphi)
+    wr, wc = crop_window(spec, max_range_m)
+    row0 = table[0]
+    rloc = jnp.arange(wr, dtype=jnp.int32)[:, None]
+    cloc = jnp.arange(wc, dtype=jnp.int32)[None, :]
 
-    if staged:
-        spos, usrc, cnt = staged_lineage_plan(ancestors)
-        prefetch = [spos, usrc, cnt, r0, c0, u0]
-        if sharewin:
-            wsel, wfill = shared_window_plan(spos, r0, u0, nw)
-            if _DEBUG_GROUPS:
-                jax.debug.print(
-                    "plan: window_fills={f} staged_maps={c} inplace={s}",
-                    f=jnp.sum(wfill), c=cnt[0],
-                    s=jnp.sum(spos < 0))
-            prefetch = [spos, usrc, cnt, wsel, wfill, r0, c0, u0]
-    elif deferred:
-        prefetch = [ancestors.astype(jnp.int32), r0, c0, u0]
-    else:
-        prefetch = [r0, c0, u0]
-    n_grid_in = 3 + len(prefetch)  # index of grids among pallas inputs
+    def one(grid, pp, rr0, cc0):
+        win = jax.lax.dynamic_slice(grid, (rr0, cc0), (wr, wc)).astype(
+            jnp.float32)
+        new = _cell_pass(win, (rr0 + rloc).astype(jnp.float32),
+                         (cc0 + cloc).astype(jnp.float32), pp[0], pp[1],
+                         pp[2], pp[3], pp[4], lambda b: row0[b],
+                         num_beams=num_beams, binu=binu)
+        return jax.lax.dynamic_update_slice(grid, new.astype(grid.dtype),
+                                            (rr0, cc0))
 
-    if ppb >= 8:
-        lik_spec = pl.BlockSpec((ppb, 128), lambda i, *_: (i, 0),
-                                memory_space=pltpu.VMEM)
-    else:
-        lik_spec = pl.BlockSpec((8, 128), lambda i, *_: (i // 8, 0),
-                                memory_space=pltpu.VMEM)
+    return jax.vmap(one)(grids, par, r0, c0), lik
 
-    out_specs = [
-        lik_spec,                                # lik rows
-        pl.BlockSpec(memory_space=space),        # grids out
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((p, 128), jnp.float32),
-        jax.ShapeDtypeStruct(grids.shape, grids.dtype),
-    ]
-    if staged:
-        # HBM stage buffer for the unique ancestor maps (an output only
-        # because pallas has no HBM scratch space; never returned)
-        out_specs.append(pl.BlockSpec(memory_space=pl.ANY))
-        out_shape.append(jax.ShapeDtypeStruct(grids.shape, grids.dtype))
 
-    outs = pl.pallas_call(
+# ---- the cell pass as a Pallas kernel through Triton -------------------
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+# cells per program and warps per program: 512 cells on 4 warps measured
+# fastest of 512-4096 cells x 2/4/8 warps at the headline geometry
+# (H100 80GB HBM3 at 700 W)
+_TILE_CELLS = 512
+_NUM_WARPS = 4
+
+
+def triton_blocks(wr: int, wc: int) -> tuple[int, int]:
+    """(rows, cols) of one program's tile: the window's columns rounded
+    up to a power of two, and as many rows as make ``_TILE_CELLS`` cells
+    (Triton blocks are powers of two; masked loads cover the rest)."""
+    bc = _next_pow2(wc)
+    br = max(1, min(_next_pow2(wr), _TILE_CELLS // bc))
+    return br, bc
+
+
+def _div_rn(a, b):
+    return plgpu.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;", args=[a, b], constraints="=f,f,f",
+        pack=1, result_shape_dtypes=[jax.ShapeDtypeStruct(a.shape,
+                                                          jnp.float32)])[0]
+
+
+def _sqrt_rn(a):
+    return plgpu.elementwise_inline_asm(
+        "sqrt.rn.f32 $0, $1;", args=[a], constraints="=f,f", pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(a.shape, jnp.float32)])[0]
+
+
+def _cell_kernel(org_ref, par_ref, tab_ref, g_ref, o_ref, *, br, bc, wr,
+                 wc, num_beams, binu, ieee_asm):
+    """One program: rows [k*br, (k+1)*br) x cols [0, bc) of one
+    particle's window, masked to the window, updated in place."""
+    k = pl.program_id(1)
+    r0 = org_ref[0]
+    c0 = org_ref[1]
+    rloc = k * br + jax.lax.broadcasted_iota(jnp.int32, (br, bc), 0)
+    cloc = jax.lax.broadcasted_iota(jnp.int32, (br, bc), 1)
+    mask = (rloc < wr) & (cloc < wc)
+    view = (pl.ds(r0 + k * br, br), pl.ds(c0, bc))
+    win = plgpu.load(g_ref.at[view], mask=mask, other=0.0).astype(
+        jnp.float32)
+    new = _cell_pass(
+        win, (r0 + rloc).astype(jnp.float32),
+        (c0 + cloc).astype(jnp.float32), par_ref[0], par_ref[1],
+        par_ref[2], par_ref[3], par_ref[4], lambda b: tab_ref[b],
+        num_beams=num_beams, binu=binu,
+        div=_div_rn if ieee_asm else jnp.divide,
+        sqrt=_sqrt_rn if ieee_asm else jnp.sqrt)
+    plgpu.store(o_ref.at[view], new.astype(o_ref.dtype), mask=mask)
+
+
+def fused_update_triton(grids: Array, poses: Array, angles0: Array,
+                        distances: Array, valid: Array, present: Array,
+                        spec: GridSpec2D, num_beams: int,
+                        max_range_m: float, dphi=None,
+                        interpret: bool = False):
+    """:func:`fused_update_xla` with the cell pass as one Pallas kernel
+    through Triton, grid ``(P, row_chunks)``.  Each program loads its
+    particle's window origin and scalars itself, reads a power-of-two
+    tile of the window with masked loads, looks the bins up in the beam
+    table by index, and stores in place (``input_output_aliases``).  The
+    likelihood gather runs before the kernel, so no program reads a
+    cell another program has written.  ``interpret=True`` runs it on
+    the CPU (the kernel's IEEE division/sqrt instructions are then the
+    plain ops, which round the same way)."""
+    binu, table, par, r0, c0, lik = _prepare(
+        grids, poses, angles0, distances, valid, present, spec, num_beams,
+        max_range_m, dphi)
+    p, rows, cols = grids.shape
+    wr, wc = crop_window(spec, max_range_m)
+    br, bc = triton_blocks(wr, wc)
+    org = jnp.stack([r0, c0], axis=-1)
+    kernel = functools.partial(_cell_kernel, br=br, bc=bc, wr=wr, wc=wc,
+                               num_beams=num_beams, binu=binu,
+                               ieee_asm=not interpret)
+    grid_spec = pl.BlockSpec((None, rows, cols), lambda i, k: (i, 0, 0))
+    out = pl.pallas_call(
         kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=len(prefetch),
-            grid=(p // ppb,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),   # pp [P, 8]
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # pv [P, 8]
-                pl.BlockSpec(memory_space=pltpu.VMEM),   # table [8, 512]
-                pl.BlockSpec(memory_space=space),        # grids
-            ],
-            out_specs=out_specs,
-            scratch_shapes=scratch,
-        ),
-        out_shape=out_shape,
-        input_output_aliases=(
-            {} if deferred and not staged else {n_grid_in: 1}),
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-            # Scoped-vmem accounting counts the aliased grids in AND out
-            # (2x), so the resident kernel needs 2*grids + slack.  Keep
-            # the limit TIGHT: a generous cap measurably degrades
-            # Mosaic's pipelining (287 us at 84 MB vs 392 us at 100 MB
-            # for the 40 MB headline grids, same kernel).
-            vmem_limit_bytes=(
-                2 * grids.size * grids.dtype.itemsize + 6 * 1024 * 1024
-                if resident else 64 * 1024 * 1024),
-        ),
+        grid=(p, pl.cdiv(wr, br)),
+        in_specs=[
+            pl.BlockSpec((None, 2), lambda i, k: (i, 0)),
+            pl.BlockSpec((None, 8), lambda i, k: (i, 0)),
+            pl.BlockSpec((table.shape[1],), lambda i, k: (0,)),
+            grid_spec,
+        ],
+        out_specs=grid_spec,
+        out_shape=jax.ShapeDtypeStruct(grids.shape, grids.dtype),
+        input_output_aliases={3: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(*prefetch, pp, pv, table, grids)
-    lik, grids_out = outs[0], outs[1]
+        name="fused_cell_pass",
+    )(org, par, table[0], grids)
+    return out, lik
 
-    return grids_out, lik[:, 0]
+
+def fused_update(grids: Array, poses: Array, angles0: Array,
+                 distances: Array, valid: Array, present: Array,
+                 spec: GridSpec2D, num_beams: int, max_range_m: float,
+                 dphi=None):
+    """One RBPF grid update for all particles, in the formulation
+    :func:`update_impl` picks for the default backend.  Same contract
+    as :func:`fused_update_xla`."""
+    args = (grids, poses, angles0, distances, valid, present, spec,
+            num_beams, max_range_m, dphi)
+    if update_impl(jax.default_backend()) == "triton":
+        return fused_update_triton(*args)
+    return fused_update_xla(*args)
+
+
+# ---- the oracle and the parity measure ---------------------------------
+
+
+def window_cells(spec: GridSpec2D, max_range_m: float, p: int) -> int:
+    """Cells an update covers: P disc-box windows."""
+    wr, wc = crop_window(spec, max_range_m)
+    return p * wr * wc
+
+
+def grid_mismatch(a: Array, b: Array, rel: float = 1e-6) -> tuple[int, int]:
+    """(flips, cells that differ at all) between two grid sets, compared
+    at f32.  A flip differs by more than f32 rounding: more than ``rel``
+    times the larger magnitude, floored at 1.  Increments are O(1)
+    log-odds times a density >= 1, so a flipped bin or ISM band moves a
+    cell by >= 0.8, while the few-ulp noise of two separately compiled
+    graphs stays far below."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    neq = a != b
+    scale = np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
+    far = neq & (np.abs(a - b) > rel * scale)
+    return int(far.sum()), int(neq.sum())
 
 
 def fused_update_reference(grids, poses, angles0, distances, valid, present,
                            spec: GridSpec2D, num_beams: int,
                            max_range_m: float, dphi=None):
-    """Pure-jnp oracle mirroring the kernel math 1:1 (for tests)."""
+    """Pure-jnp oracle (for tests): full-width row windows, 8-aligned."""
     p, rows, cols = grids.shape
     wr = window_rows(spec, max_range_m)
     wr = min(wr, rows - rows % 8 if rows % 8 else rows)
@@ -1929,7 +496,8 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
     binu = static_dphi(dphi)
     dphi = jnp.asarray(dphi, jnp.float32)
     table = encode_beam_table(distances / spec.resolution, valid, present,
-                              angles0, dphi)
+                              angles0, dphi,
+                              length=table_len(num_beams, binu))
     half = TOLERANCE_CELLS / 2.0
     two_pi = 2.0 * pymath.pi
 
@@ -1937,8 +505,7 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
         win = jax.lax.dynamic_slice(grid, (rr0, 0), (wr, cols)).astype(
             jnp.float32)
 
-        # exact endpoint likelihood (same expanded-rotation math as
-        # _endpoint_lik, computed on the pre-update window)
+        # exact endpoint likelihood on the pre-update window
         d_b = table[1]
         ca = table[2]
         sa = table[3]
@@ -1960,21 +527,20 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
         factor = jnp.where(odds == 0.0, 1.0 / SENSOR_MAXDIST, mix)
         lik = jnp.sum(jnp.where(use, jnp.log(factor), 0.0))
 
-        # same folded-offset / bin-units arithmetic as the kernel's
-        # _cell_pass (1:1 rounding, except atan2 which is exact here)
+        # per-cell arithmetic in absolute grid coordinates
         wyl = jnp.arange(wr, dtype=jnp.float32)[:, None]
         wxl = jnp.arange(cols, dtype=jnp.float32)[None, :]
+        rowf = (rr0 + jnp.arange(wr, dtype=jnp.int32)).astype(
+            jnp.float32)[:, None]
         rr0f = rr0.astype(jnp.float32)
         dx = wxl + (0.5 - cx)
-        dy = wyl + (rr0f + (0.5 - cy))
+        dy = rowf + (0.5 - cy)
         r2 = dx * dx + dy * dy
         r = jnp.sqrt(r2)
         phi = jnp.arctan2(dy, dx)
         if binu is not None:
-            # static bin-units mirror (see _cell_pass; exact arctan2
-            # stands in for the kernel's minimax poly): floor-form
-            # rounding constant T, wrap bounds bins to [0, nbf] —
-            # padding lanes [num_beams, 512) decode absent directly
+            # static bin units: floor-form rounding constant T, the wrap
+            # bounds bins to [0, 2*pi/dphi] — absent slots past the beams
             inv_s = jnp.float32(1.0 / binu)
             nbf = two_pi / binu
             t_const = (theta + angles0) * inv_s - 0.5
@@ -1993,12 +559,7 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
             bins_f = jnp.where(wrap, 0.0, bins_f)
             bins_f = jnp.where(absent, float(num_beams), bins_f)
             bins = bins_f.astype(jnp.int32)
-        # mirror of the kernel's squared-space decode (single gather),
-        # including the packed row's static distance quantum
         d_enc = table[0][bins]
-        if num_beams <= 381:
-            d_enc = quantize_d_enc(
-                d_enc, pack3_quantum(max_range_m / spec.resolution))
         was_hit = d_enc > 0.0
         pres = d_enc != 0.0
         d = jnp.abs(d_enc)

@@ -16,11 +16,11 @@ Parity surface:
   with the Z_HIT mixture, product in log space
   (:func:`grid_log_likelihood`).
 
-TPU-first design: the reference mutates one cell at a time inside nested
-loops (beams × ray cells × particles).  Here every (beam, step) lane is
+Design: the reference mutates one cell at a time inside nested loops
+(beams × ray cells × particles).  Here every (beam, step) lane is
 computed in parallel and a single ``.at[rows, cols].add(values)`` performs
 the whole update; ``vmap`` lifts it over particles (grids stay resident in
-HBM as ``f32[P, H, W]``).  Scatter-add ordering differs from the
+device memory as ``f32[P, H, W]``).  Scatter-add ordering differs from the
 reference's sequential order only in float rounding.
 
 Grid layout: arrays are ``[H, W]`` indexed ``grid[row=y, col=x]``.  (The
@@ -254,7 +254,7 @@ def grid_integrate_dense(grid: Array, spec: GridSpec2D, pose: Array,
                          angles: Array, distances: Array, valid: Array,
                          present: Array, window: int,
                          multiplicity: bool = True) -> Array:
-    """Scatter-free scan integration: the TPU-native fast path.
+    """Scatter-free scan integration.
 
     Same inverse sensor model as :func:`grid_integrate` (map.rs:148-172)
     but formulated *dense*: every cell in a ``window x window`` region
@@ -263,8 +263,8 @@ def grid_integrate_dense(grid: Array, spec: GridSpec2D, pose: Array,
     angular table — 1 degree spacing in every reference configuration),
     and applies the inverse-sensor-model log-odds directly.  This replaces
     the reference's per-beam DDA walk + per-cell mutation with pure
-    vectorized VPU math + one gather — no scatter at all, which on TPU is
-    the difference between ~ms and ~µs per particle.
+    vectorized elementwise math + one table gather — no scatter over the
+    beam walk.
 
     Semantic note vs the DDA path: the DDA increments a cell once per
     *beam visit*, so near the robot (where many beams cross one cell)
@@ -280,8 +280,6 @@ def grid_integrate_dense(grid: Array, spec: GridSpec2D, pose: Array,
     ``window`` is a static cell count (use
     :func:`dense_window_for` to size it from the scan range).
     """
-    from slamrs_tpu.ops.lookup import radix_lookup
-
     b = angles.shape[-1]
     # honor the scan's true angular spacing (the simulator emits
     # 1-degree tables regardless of beam count, simulator.py:155) —
@@ -330,14 +328,10 @@ def grid_integrate_dense(grid: Array, spec: GridSpec2D, pose: Array,
     in_sector = wrap | (beam_f <= b - 1)
     beam = jnp.where(wrap | ~in_sector, 0.0, beam_f).astype(jnp.int32)
 
-    # gather-free beam-table lookup (see ops.lookup): one [B, 3] table
-    table = jnp.stack([distances / spec.resolution,
-                       valid.astype(jnp.float32),
-                       present.astype(jnp.float32)], axis=-1)
-    vals = radix_lookup(table, beam)
-    d_meas = vals[..., 0]
-    was_hit = vals[..., 1] > 0.5
-    pres = (vals[..., 2] > 0.5) & in_sector
+    # beam-table lookup: one gather per field
+    d_meas = jnp.take(distances / spec.resolution, beam)
+    was_hit = jnp.take(valid, beam)
+    pres = jnp.take(present, beam) & in_sector
 
     inc = inverse_sensor_model_log_odds(r, d_meas, was_hit)
     if multiplicity:

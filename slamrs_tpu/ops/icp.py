@@ -9,13 +9,12 @@ and renormalize the angle.  Normals come from central differences of
 neighboring reference points (compute_normals, icp.rs:226-254); weights are
 Uniform or a Step function on the squared error (icp.rs:29-51).
 
-TPU-first design:
+Design:
 
 * Correspondences: the reference builds a kd-tree per call (icp.rs:61-68).
-  kd-trees neither vmap nor keep the MXU busy; at scan sizes (<=360 source
-  points, a few thousand reference points) a dense pairwise distance matrix
-  is one small matmul (``-2 p qᵀ`` on the MXU) plus an argmin — faster and
-  batchable over worlds.
+  kd-trees do not vmap; at scan sizes (<=360 source points, a few
+  thousand reference points) a dense pairwise distance matrix is one
+  small matmul (``-2 p qᵀ``) plus an argmin — batchable over worlds.
 * Point clouds are fixed-capacity padded buffers.  Padded reference lanes
   are excluded from the argmin with +inf; padded source lanes get weight 0.
   Reference endpoint lanes have zero normals (as in the reference), which
@@ -31,12 +30,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 Array = jnp.ndarray
 
@@ -87,80 +82,13 @@ def compute_normals(q: Array, q_count: Array) -> Array:
     return jnp.where(interior[..., None], normal, 0.0)
 
 
-def _nn_kernel(pt_ref, q_ref, out_ref, *, np_pad, nq_pad, pp):
-    """One ICP problem per program: d2 [Np, Nq] lives entirely in VMEM
-    (never materialized in HBM — the XLA formulation streams a
-    [batch, 360, 360] matrix through HBM every iteration, ~90 ms per
-    2048x10 batch on a v5e).  p arrives as lane rows and is transposed
-    on-chip to sublane columns (keeps the block copy at [8, Np] instead
-    of a lane-padded [Np, 128])."""
-    iota = jax.lax.broadcasted_iota(jnp.int32, (np_pad, nq_pad), 1)
-    for k in range(pp):  # unrolled: pp problems per program
-        pt = jnp.transpose(pt_ref[k])            # [np_pad, 8]
-        px = pt[:, 0:1]                          # [Np, 1]
-        py = pt[:, 1:2]
-        qx = q_ref[k, 0:1, :]                    # [1, Nq]
-        qy = q_ref[k, 1:2, :]
-        q2v = q_ref[k, 2:3, :]                   # q^2 (+BIG invalid lanes)
-        d2 = q2v - 2.0 * (px * qx + py * qy)     # [Np, Nq]
-        m = jnp.min(d2, axis=1, keepdims=True)
-        idx = jnp.min(jnp.where(d2 <= m, iota, nq_pad), axis=1)
-        out_ref[k] = idx.astype(jnp.int32)
-
-
-def nearest_neighbors_fused(p_t: Array, q: Array, q_count: Array,
-                            interpret: bool = False) -> Array:
-    """Pallas VMEM nearest-neighbor: same contract as
-    :func:`nearest_neighbors` for 2-D point sets, [B, Np, 2] x [B, Nq, 2]
-    (flatten extra leading dims first)."""
-    b, n_p, _ = p_t.shape
-    nq = q.shape[-2]
-    np_pad = (n_p + 7) // 8 * 8
-    nq_pad = (nq + 127) // 128 * 128
-    pp = 8 if b % 8 == 0 else 1  # problems per program
-
-    ptx = jnp.zeros((b, np_pad), jnp.float32).at[:, :n_p].set(p_t[..., 0])
-    pty = jnp.zeros((b, np_pad), jnp.float32).at[:, :n_p].set(p_t[..., 1])
-    pt = jnp.stack([ptx, pty], axis=1)           # [B, 2, np_pad]
-    pt = jnp.concatenate(
-        [pt, jnp.zeros((b, 6, np_pad), jnp.float32)], axis=1)  # rows -> 8
-    lane = jnp.arange(nq_pad)
-    q_valid = lane[None, :] < q_count[:, None]
-    qx = jnp.zeros((b, nq_pad), jnp.float32).at[:, :nq].set(q[..., 0])
-    qy = jnp.zeros((b, nq_pad), jnp.float32).at[:, :nq].set(q[..., 1])
-    q2 = qx * qx + qy * qy + jnp.where(q_valid, 0.0, _BIG)
-    qrows = jnp.stack([qx, qy, q2], axis=1)      # [B, 3, nq_pad]
-    qrows = jnp.concatenate(
-        [qrows, jnp.zeros((b, 5, nq_pad), jnp.float32)], axis=1)  # pad to 8
-
-    out = pl.pallas_call(
-        functools.partial(_nn_kernel, np_pad=np_pad, nq_pad=nq_pad, pp=pp),
-        grid=(b // pp,),
-        in_specs=[
-            pl.BlockSpec((pp, 8, np_pad), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((pp, 8, nq_pad), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((pp, np_pad), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, np_pad), jnp.int32),
-        interpret=interpret,
-    )(pt, qrows)
-    idx = jnp.minimum(out[:, :n_p], nq - 1)
-    # degenerate all-invalid contract match: with q_count == 0 every d2
-    # is ~_BIG and the in-kernel tie-break would land on an arbitrary
-    # lane; the XLA argmin path returns 0 — do the same so the opt-in
-    # kernel is a drop-in replacement
-    return jnp.where(q_count[:, None] > 0, idx, 0)
-
-
 def nearest_neighbors(p: Array, q: Array, q_count: Array) -> Array:
     """Index into q of the closest point for every p lane.
 
     Parity: find_correspondences (icp.rs:131-146) — kd-tree NN replaced by
-    a dense distance matrix: ``-2 p qᵀ`` rides the MXU; padded q lanes are
-    pushed to +inf before the argmin.
+    a dense distance matrix ``|q|² - 2 p qᵀ``; padded q lanes are pushed
+    to +inf before the argmin.  The product runs at full f32 precision:
+    a reduced-precision (TF32) product would flip near-tie argmins.
     p [..., Np, 2], q [..., Nq, 2] -> i32[..., Np].
     """
     # the p-squared term is constant along the argmin axis — dropping it
@@ -168,7 +96,8 @@ def nearest_neighbors(p: Array, q: Array, q_count: Array) -> Array:
     d2 = (
         jnp.sum(q * q, axis=-1)[..., None, :]
         - 2.0 * jnp.einsum("...nd,...md->...nm", p, q,
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
     )
     lane = jnp.arange(q.shape[-2])
     q_valid = lane < jnp.asarray(q_count)[..., None]
@@ -184,15 +113,8 @@ def icp_point_to_normal(
     initial_pose: Array,
     iterations: int = 10,
     step_threshold: float | None = None,
-    pallas_nn: bool = False,
 ) -> IcpResult:
     """Fixed-iteration point-to-normal ICP (icp.rs:82-128).
-
-    ``pallas_nn`` switches correspondence to the VMEM Pallas kernel;
-    measured SLOWER than the XLA matmul formulation at the 360-point,
-    2048-problem scale (158 vs 115 ms per 10-iteration batch — the
-    per-problem lane-reduce chain beats HBM streaming only for much
-    larger point sets), so it is opt-in.
 
     Args:
       p: f32[Np, 2] source points (padded), p_mask: bool[Np].
@@ -206,16 +128,10 @@ def icp_point_to_normal(
     Batch over worlds with ``vmap``.
     """
     q_normals = compute_normals(q, q_count)
-    use_pallas_nn = (pallas_nn and p.ndim == 2 and q.ndim == 2
-                     and jax.default_backend() == "tpu")
 
     def iteration(x, _):
         p_t = transform_points(p, x)
-        if use_pallas_nn:
-            corr = nearest_neighbors_fused(p_t[None], q[None],
-                                           jnp.asarray(q_count)[None])[0]
-        else:
-            corr = nearest_neighbors(p_t, q, q_count)  # [Np]
+        corr = nearest_neighbors(p_t, q, q_count)  # [Np]
         qc = jnp.take_along_axis(q, corr[..., None], axis=-2)  # [Np, 2]
         nc = jnp.take_along_axis(q_normals, corr[..., None], axis=-2)
 
@@ -257,9 +173,9 @@ def _pinv_solve(H: Array, b: Array, rcond: float = 1e-8) -> Array:
     """Solve the symmetric PSD 3x3 system H dx = b.
 
     Behavior target: lstsq(H, b, eps=1e-8) (icp.rs:211-215).  A batched
-    ``eigh`` costs ~110 ms per 2048x10-iteration ICP batch on a v5e (half
-    the ICP budget); this closed-form adjugate/Cramer solve with a tiny
-    relative Tikhonov floor is ~free on the VPU and matches lstsq to f32
+    ``eigh`` is a large share of a batched ICP solve; this closed-form
+    adjugate/Cramer solve with a tiny relative Tikhonov floor is a few
+    elementwise ops and matches lstsq to f32
     precision for the PD systems ICP produces (the ridge only acts when H
     is numerically singular, where lstsq's min-norm answer is equally
     arbitrary for the pose update).

@@ -5,11 +5,11 @@ Parity surface: ``slamrs/simulator/src/scene/ray.rs`` —
 parameters ``t`` on the segment and ``u`` along the ray) and
 ``Scene::intersect`` (ray.rs:164-172, min-``u`` over all objects).
 
-TPU-first design: the reference walks 360 beams in a Python-style loop and,
+Design: the reference walks 360 beams in a Python-style loop and,
 per beam, a boxed-trait loop over scene objects (O(beams × segments) scalar
 work under an RwLock, sim.rs:134-159).  Here the whole thing is one fused
 elementwise computation over a ``[..., B, S]`` broadcast followed by a
-min-reduction over S — XLA maps it onto the VPU in a single kernel, and a
+min-reduction over S — XLA fuses it into a single kernel, and a
 ``vmap``/shard over worlds batches it across the fleet.  At 360 beams x
 O(100) segments per world the arithmetic is tiny; the win is doing every
 world x beam x segment in one launch with zero host involvement.

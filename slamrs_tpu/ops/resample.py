@@ -5,10 +5,10 @@ systematic (low-variance) resampling with a single uniform offset
 r in [0, 1/N) (particle.rs:78-105), weight normalization (49-56), and the
 effective-particle-count diagnostic (59-65).
 
-TPU-first design: the reference's ``while u > c`` pointer walk becomes a
+Design: the reference's ``while u > c`` pointer walk becomes a
 ``cumsum`` + ``searchsorted``; the reference's deep per-particle clone of
 (Pose, full Map grid) becomes a gather by ancestor indices done by the
-caller (``jnp.take`` — no host copies, one HBM pass).
+caller (``jnp.take`` — no host copies, one pass over device memory).
 """
 
 from __future__ import annotations
@@ -56,6 +56,6 @@ def systematic_resample(key: Array, weights: Array,
     cum = jnp.cumsum(weights, axis=-1)
     # comparison-matrix formulation: ancestor_m = #(cum_i < u_m); identical
     # to searchsorted(side='left') but batches/vectorizes trivially on the
-    # VPU for the particle counts involved (cum[-1] roundoff covered by clip)
+    # device for the particle counts involved (cum[-1] roundoff covered by clip)
     idx = jnp.sum(cum[..., None, :] < u[..., :, None], axis=-1)
     return jnp.clip(idx, 0, n - 1).astype(jnp.int32)

@@ -2,8 +2,8 @@
 
 The reference is strictly single-process (SURVEY §2.3/§5.8: its only
 "transports" are in-process mpsc channels and the robot serial/TCP link);
-scale-out is a new, TPU-native capability: BASELINE config 5 asks for 256
-parallel worlds on a v5e-8.
+scale-out is a new capability: BASELINE config 5 asks for 256 parallel
+worlds across the devices of one host.
 
 Design (the scaling-book recipe — pick a mesh, annotate shardings, let the
 XLA SPMD partitioner insert the collectives):
@@ -13,14 +13,16 @@ XLA SPMD partitioner insert the collectives):
   set *within* each world — weight normalization and the systematic
   resample's cumulative sum become cross-shard reductions, and the
   ancestor gather of per-particle grids becomes an all-to-all, all
-  partitioner-inserted and riding ICI.
+  partitioner-inserted (NCCL over NVLink between the cards of a host).
+  Every card reaches every other at the same rate, so the mesh follows
+  the algorithm, in ``jax.devices()`` order.
 * ``shard_world_state`` annotates the :class:`WorldState` pytree: leaves
   with a leading worlds axis get ``P('world', ...)``; per-particle leaves
   (poses/grids/weights of the PF) additionally shard their particle axis;
   shared scalars (scan timer/counter) replicate.
 
-No NCCL/MPI-style runtime exists or is needed: a jitted step with these
-shardings IS the distributed program.
+No hand-written communication runtime is needed: a jitted step with
+these shardings IS the distributed program.
 """
 
 from __future__ import annotations
@@ -62,28 +64,14 @@ def fleet_shardings(state, mesh: Mesh, worlds: int):
     if state.grid is not None:
         from slamrs_tpu.models.gridslam import GridSlamState
 
-        if state.grid.tile_table is not None:
-            # tiled maps (world-only meshes): grids is the per-world
-            # tile POOL [W, n_phys, hb, C] — its second axis is physical
-            # tiles, NOT particles; shard the world axis only
-            grid_sh = GridSlamState(
-                poses=ws("particle"),   # [W, P, 3]
-                grids=ws(),             # [W, n_phys, hb, C] pool
-                weights=ws("particle"),
-                best_pose=ws(),
-                best_idx=ws(),
-                ancestors=ws("particle"),
-                tile_table=ws("particle"),  # [W, P, nb]
-            )
-        else:
-            grid_sh = GridSlamState(
-                poses=ws("particle"),  # [W, P, 3]
-                grids=ws("particle"),  # [W, P, H, Wc]
-                weights=ws("particle"),  # [W, P]
-                best_pose=ws(),  # [W, 3]
-                best_idx=ws(),  # [W]
-                ancestors=ws("particle"),  # [W, P]
-            )
+        grid_sh = GridSlamState(
+            poses=ws("particle"),  # [W, P, 3]
+            grids=ws("particle"),  # [W, P, H, W']
+            weights=ws("particle"),  # [W, P]
+            best_pose=ws(),  # [W, 3]
+            best_idx=ws(),  # [W]
+            ancestors=ws("particle"),  # [W, P]
+        )
     icp_sh = (jax.tree.map(lambda _: ws(), state.icp)
               if state.icp is not None else None)
     ekf_sh = (jax.tree.map(lambda _: ws(), state.ekf)

@@ -2,13 +2,14 @@
 
 Reference semantics being scaled: ``ParticleFilter::resample``
 (slamrs/slam/src/grid/particle.rs:78-105) — the resampled particle set
-is a MULTISET of survivors (slot order is free, see ops/cow.py's
-argument), so each device may relabel slots to keep data local.
+is a MULTISET of survivors (slot order is free: slots only pair
+particles with independent noise draws), so each device may relabel
+slots to keep data local.
 
 The naive sharded formulation (``jnp.take_along_axis`` over a
 particle-sharded grid axis) makes the SPMD partitioner all-gather the
 entire per-world map set onto every device — at BASELINE config-5 scale
-that is the whole multi-GB state over ICI per resample.  This module
+that is the whole multi-GB state over the interconnect per resample.  This module
 replaces it with a LOCAL-FIRST plan under ``shard_map``:
 
 * Each particle shard keeps copies of its OWN surviving ancestors in its

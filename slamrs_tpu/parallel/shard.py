@@ -1,23 +1,23 @@
-"""Mesh-sharded execution of the fused RBPF kernel.
+"""Mesh-sharded execution of the fused RBPF update.
 
 The SPMD partitioner auto-inserts collectives for every jnp op in the
 SLAM update (weight normalization, N_eff, the resample gather — all
-tiny or partitionable), but it cannot partition a ``pl.pallas_call``:
-left alone it would all-gather the full particle-map set onto every
-device and run the kernel replicated.  This module wraps ONLY the
-kernel in :func:`jax.shard_map` over the fleet's ``(world, particle)``
-mesh — the scaling-book recipe: manual-shard the one custom kernel,
+tiny or partitionable), but it cannot partition a hand-written kernel
+(``pl.pallas_call``): left alone it would all-gather the full
+particle-map set onto every device and run the kernel replicated.  This
+module wraps ONLY the fused update in :func:`jax.shard_map` over the
+fleet's ``(world, particle)`` mesh — manual-shard the one custom kernel,
 let the partitioner own everything around it.
 
-The kernel is embarrassingly parallel over (world, particle): each
-device runs the identical Pallas program on its local
-``[W_loc, P_loc, H, C]`` block with the (per-world) scan replicated
-along the particle axis — no collectives inside, so results are
-bitwise identical to the unsharded ``vmap`` formulation.
+The update is embarrassingly parallel over (world, particle): each
+device runs the identical program on its local ``[W_loc, P_loc, H, W]``
+block with the (per-world) scan replicated along the particle axis — no
+collectives inside, so results match the unsharded ``vmap``
+formulation.
 
 Reference capability being scaled: the per-particle weight+integrate
 core ``GridMapSlam::update`` (slamrs/slam/src/grid/slam.rs:45-75) at
-BASELINE config-5 fleet scale (256 worlds on a v5e-8).
+BASELINE config-5 fleet scale.
 """
 
 from __future__ import annotations
@@ -38,26 +38,20 @@ def fused_update_batched(grids: Array, poses: Array, angles0: Array,
                          spec: GridSpec2D, num_beams: int,
                          max_range_m: float, dphi: Array,
                          mesh: Mesh | None = None,
-                         interpret: bool = False,
                          dphi_static: float | None = None):
-    """Batched-worlds fused update: grids [W, P, H, C], poses [W, P, 3],
+    """Batched-worlds fused update: grids [W, P, H, W'], poses [W, P, 3],
     per-world scan arrays ([W] / [W, B]).
 
-    ``mesh=None`` vmaps the kernel over worlds (single-device fleets —
-    Pallas turns the vmap into an outer grid dimension).  With a mesh,
-    the same vmapped call runs under ``shard_map`` on each device's
-    local (world, particle) block.  Returns (grids', log_lik [W, P]).
+    ``mesh=None`` vmaps the update over worlds (single-device fleets).
+    With a mesh, the same vmapped call runs under ``shard_map`` on each
+    device's local (world, particle) block.  Returns (grids', log_lik
+    [W, P]).
     """
-    from slamrs_tpu.ops.fused import fits_vmem_resident, fused_update
+    from slamrs_tpu.ops.fused import fused_update
 
     def run_block(g, q, a0, d, v, pr, dp):
-        # residency from the TRUE stacked block size (under shard_map the
-        # block is the per-device shard; unsharded it is the whole fleet)
-        resident = fits_vmem_resident(
-            g.size * jnp.dtype(g.dtype).itemsize)
         f = functools.partial(fused_update, spec=spec, num_beams=num_beams,
-                              max_range_m=max_range_m, resident=resident,
-                              interpret=interpret)
+                              max_range_m=max_range_m)
         return jax.vmap(lambda gg, qq, aa, dd, vv, pp, ddp:
                         f(gg, qq, aa, dd, vv, pp,
                           dphi=dphi_static if dphi_static is not None

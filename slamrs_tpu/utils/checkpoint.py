@@ -3,7 +3,7 @@
 The reference has NO persistence — map save/load is an explicitly
 unimplemented future direction (slamrs README.md:45) and the config
 editor's Apply discards all node state (app.rs:121-134).  A production
-TPU framework needs both, so this module adds them as a framework
+framework needs both, so this module adds them as a framework
 capability (SURVEY §5.4):
 
 * ``save(path, state)`` / ``load(path, like)``: any pytree of arrays

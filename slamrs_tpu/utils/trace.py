@@ -6,7 +6,7 @@ timing events (baseui/src/main.rs:18-22) and instruments
 live timings.  Here: a process-global registry of named
 :class:`~slamrs_tpu.utils.perf.PerfStats`, a ``span`` context
 manager/decorator that logs span-close durations, and optional forwarding
-to ``jax.profiler.TraceAnnotation`` so spans show up in TPU profiles.
+to ``jax.profiler.TraceAnnotation`` so spans show up in device profiles.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Parity surface: ``graphics/src/{gl.rs, shader.rs, primitiverenderer.rs}``
 — the reference compiles a vertex+fragment shader pair that transforms
 ``(position, rgba)`` vertex buffers by the camera's orthographic
-projection and rasterizes Point/Line/Filled primitive batches.  A TPU
+projection and rasterizes Point/Line/Filled primitive batches.  A headless
 framework has no GL context; this module IS that pipeline as a pure
 numpy rasterizer:
 

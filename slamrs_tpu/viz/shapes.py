@@ -6,7 +6,7 @@ Parity surface: ``graphics/src/{primitiverenderer,shaperenderer,camera}.rs``
 covariance-ellipse, shaperenderer.rs:17-266), and provides an orthographic
 pan/zoom camera with ``unproject`` (camera.rs:4-138).
 
-The TPU framework core has no GL context; this module reproduces the same
+The framework core has no GL context; this module reproduces the same
 API producing *vertex arrays* (numpy) that any host backend can consume —
 the built-in backend rasterizes to PNG via matplotlib.  The vertex-batch
 layout (position + RGBA, grouped by primitive type into draw calls)

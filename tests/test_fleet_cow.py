@@ -1,21 +1,10 @@
-"""Fleet composition of the best resample mechanisms (VERDICT r4 #4).
-
-Round 4 left the scale-out story running its WORST resample path: batched
-fleets forced ``resample_cow=False`` (whole-set gather) and tiled states
-raised.  These tests gate the composition that replaces that:
-
-* unsharded fleets apply ONE flattened cross-world CoW pass
-  (``gridslam._update_fleet_cow`` — block-diagonal ancestors, only
-  duplicated maps move),
-* world-only meshes run that same pass per device under ``shard_map``,
-* tiled pools run as a trace-time world loop (per-call CoW plans),
-  unsharded and under a world-only mesh.
+"""Fleet updates on the fused path: unsharded fleets are per-world
+``vmap(update)`` (the whole-set gather resample behind the N_eff gate),
+world-only meshes run the fused update per device under ``shard_map``.
 
 Reference semantics per world: ParticleFilter::resample
 (slamrs/slam/src/grid/particle.rs:78-105) over independent worlds.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -67,14 +56,13 @@ def _multiset_equal(poses_a, grids_a, poses_b, grids_b, world):
 
 
 def test_fleet_cow_multiset_matches_gather():
-    """The default unsharded-fleet resample (flattened cross-world CoW)
-    must produce the same per-world particle MULTISET as the slot-exact
-    gather mode after one resampling update (slot order is free, and the
-    NEXT step's per-slot noise pairing makes trajectories order-dependent
-    — so the comparison is one step from a common state, like the
-    sharded local/gather gate).  A second local-mode update then checks
-    consecutive CoW applications compose (pending lineage fully applied
-    each call)."""
+    """The default unsharded-fleet resample ("local") must produce the
+    same per-world particle MULTISET as the slot-exact gather mode after
+    one resampling update (slot order is free, and the NEXT step's
+    per-slot noise pairing makes trajectories order-dependent — so the
+    comparison is one step from a common state, like the sharded
+    local/gather gate).  A second local-mode update then checks
+    consecutive updates compose (lineage fully applied each call)."""
     worlds = 3
     res = {}
     st_local = None
@@ -84,7 +72,7 @@ def test_fleet_cow_multiset_matches_gather():
         scan, odo, keys = _fleet_inputs(11, worlds)
         st, outs = gs.update_fleet(st, scan, odo, keys, cfg, mesh=None)
         assert bool(np.asarray(outs.resampled).all())
-        # the CoW path applies lineage immediately: identity pending
+        # every update applies its lineage: identity ancestors
         np.testing.assert_array_equal(
             np.asarray(st.ancestors),
             np.broadcast_to(np.arange(cfg.n_particles, dtype=np.int32),
@@ -95,7 +83,7 @@ def test_fleet_cow_multiset_matches_gather():
     for w in range(worlds):
         _multiset_equal(res["local"][0][w], res["local"][1][w],
                         res["gather"][0][w], res["gather"][1][w], w)
-    # consecutive CoW updates from the resampled state stay sound
+    # consecutive updates from the resampled state stay sound
     cfg = _base_cfg(fleet_resample="local")
     scan, odo, keys = _fleet_inputs(11, worlds, step=1)
     st2, outs2 = gs.update_fleet(st_local, scan, odo, keys, cfg, mesh=None)
@@ -104,10 +92,9 @@ def test_fleet_cow_multiset_matches_gather():
 
 
 def test_fleet_cow_world_only_mesh_matches_unsharded():
-    """A pure-DP (world-only) mesh runs the flattened CoW pass per device
-    under shard_map; the per-world copy plan is identical to the
-    unsharded flattened plan (block-diagonal alignment), so outputs agree
-    up to cross-compilation fma contraction."""
+    """A pure-DP (world-only) mesh runs the fused update per device
+    under shard_map and the resample gather locally; outputs agree with
+    the unsharded fleet up to cross-compilation fma contraction."""
     from slamrs_tpu.parallel.fleet import make_mesh
 
     worlds = 8
@@ -130,120 +117,36 @@ def test_fleet_cow_world_only_mesh_matches_unsharded():
     assert float(np.abs(d_m - d_p).max()) <= 0.25
 
 
-def test_fleet_tiled_matches_per_world_dense():
-    """Tiled fleets (config-3 formulation at scale): update_fleet on a
-    batched tiled state must be bitwise the dense gather formulation run
-    per world — same kernel math, the only difference is map storage +
-    the relabel resample (the single-world gate of test_tiles.py,
-    composed over worlds)."""
-    from slamrs_tpu.ops.tiles import materialize
-
-    kw = dict(position_x=-3.2, position_y=-6.4, width=6.4, height=12.8,
-              resolution=0.05, n_particles=16, max_scan_range=1.0,
-              integrate="fused", grid_dtype="bfloat16",
-              resample_neff_frac=1.0)
-    cfg_t = gs.GridSlamConfig(**kw, resample_cow="tiled")
-    cfg_d = gs.GridSlamConfig(**kw, resample_cow=False,
-                              fused_resident=False)
-    spec = cfg_t.grid_spec
-    worlds = 2
-    st = gs.GridSlamState.init(cfg_t, (worlds,))
-    assert st.tile_table is not None and st.tile_table.shape[0] == worlds
-    dense = [gs.GridSlamState.init(cfg_d) for _ in range(worlds)]
-    for step in range(2):
-        scan, odo, keys = _fleet_inputs(37, worlds, step)
-        st, outs = gs.update_fleet(st, scan, odo, keys, cfg_t, mesh=None)
-        assert bool(np.asarray(outs.resampled).all())
-        for i in range(worlds):
-            dense[i], _ = gs.update(
-                dense[i], jax.tree.map(lambda x: x[i], scan),
-                jax.tree.map(lambda x: x[i], odo), keys[i], cfg_d)
-            np.testing.assert_array_equal(np.asarray(st.poses[i]),
-                                          np.asarray(dense[i].poses))
-            # tiled tables carry a PENDING lineage
-            mt = materialize(st.grids[i],
-                             jnp.take(st.tile_table[i], st.ancestors[i],
-                                      axis=0), spec)
-            np.testing.assert_array_equal(
-                np.asarray(mt, np.float32),
-                np.asarray(dense[i].grids, np.float32),
-                err_msg=f"world {i} step {step}")
-    # batched estimated-map read-out goes through the per-world gather
-    pt = gs.estimated_probability_grid(st, cfg_t)
-    assert pt.shape == (worlds, spec.rows, spec.cols)
-    for i in range(worlds):
-        pd = gs.estimated_probability_grid(dense[i], cfg_d)
-        np.testing.assert_array_equal(np.asarray(pt[i]), np.asarray(pd))
-
-
-def test_fleet_tiled_world_mesh():
-    """Tiled fleets under a world-only mesh: the trace-time world loop
-    runs per device inside shard_map (each device owns whole pools) and
-    matches the unsharded tiled fleet; particle-sharded meshes reject."""
+@pytest.mark.parametrize("sharded", [False, True],
+                         ids=["one_device", "world_mesh"])
+def test_update_fleet_matches_per_world_update(sharded):
+    """update_fleet against gs.update run world by world: the plain fleet
+    path on one device, and the shard_map'd fused update on a world-only
+    mesh (the resample gather then stays on each device)."""
     from slamrs_tpu.parallel.fleet import make_mesh
 
-    kw = dict(position_x=-3.2, position_y=-6.4, width=6.4, height=12.8,
-              resolution=0.05, n_particles=16, max_scan_range=1.0,
-              integrate="fused", grid_dtype="bfloat16",
-              resample_neff_frac=1.0)
-    cfg = gs.GridSlamConfig(**kw, resample_cow="tiled")
-    worlds = 8
-    mesh = make_mesh(8, particle_axis=1)
-    st0 = gs.GridSlamState.init(cfg, (worlds,))
-    scan, odo, keys = _fleet_inputs(41, worlds)
-    st_m, outs_m = gs.update_fleet(st0, scan, odo, keys, cfg, mesh=mesh)
-    st_p, outs_p = gs.update_fleet(st0, scan, odo, keys, cfg, mesh=None)
-    np.testing.assert_allclose(np.asarray(st_m.poses),
-                               np.asarray(st_p.poses), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(st_m.tile_table),
-                                  np.asarray(st_p.tile_table))
-    d_m = np.asarray(st_m.grids, np.float32)
-    d_p = np.asarray(st_p.grids, np.float32)
-    eq = float((d_m == d_p).mean())
-    assert eq > 0.9999, f"mesh/unsharded pool agreement {eq}"
-    assert float(np.abs(d_m - d_p).max()) <= 0.25
-    np.testing.assert_allclose(np.asarray(outs_m.n_eff),
-                               np.asarray(outs_p.n_eff), rtol=1e-5)
-
-    with pytest.raises(ValueError, match="worlds only"):
-        gs.update_fleet(st0, scan, odo, keys, cfg,
-                        mesh=make_mesh(8, particle_axis=2))
-
-
-def test_auto_tiled_selection():
-    """VERDICT r4 #5: tiled storage auto-selects at the geometry where it
-    measured 2.7x (config-3-class multi-GB map sets) and stays OFF for
-    the dense-kernel regimes (headline 0.05 m, 0.02 m, config 2)."""
-    config3 = gs.GridSlamConfig(position_x=-25.0, position_y=-25.0,
-                                width=50.0, height=50.0, resolution=0.05,
-                                n_particles=1024, integrate="fused",
-                                grid_dtype="bfloat16")
-    assert gs.auto_tiled(config3)
-    # init applies the auto decision (threshold lowered so the test does
-    # not allocate a real 2 GB pool; the decision path is identical)
-    small_auto = _base_cfg(resample_cow=None)
-    old = gs._AUTO_TILED_BYTES
-    try:
-        gs._AUTO_TILED_BYTES = 1024
-        assert gs.auto_tiled(small_auto)
-        st = gs.GridSlamState.init(small_auto)
-        assert st.tile_table is not None
-    finally:
-        gs._AUTO_TILED_BYTES = old
-    # explicit pins override auto in BOTH directions
-    assert not gs.auto_tiled(
-        dataclasses.replace(config3, resample_cow=True))
-    small = [
-        _base_cfg(),                                   # headline 0.05 m
-        _base_cfg(resolution=0.02, n_particles=1024),  # 0.02 m
-        gs.GridSlamConfig(position_x=-10.0, position_y=-10.0, width=20.0,
-                          height=20.0, resolution=0.05, n_particles=100,
-                          integrate="fused", grid_dtype="bfloat16"),
-        dataclasses.replace(config3, integrate="dda"),
-    ]
-    for cfg in small:
-        assert not gs.auto_tiled(cfg), cfg
-        assert gs.GridSlamState.init(
-            dataclasses.replace(cfg, n_particles=4, width=4.0, height=4.0,
-                                position_x=-2.0, position_y=-2.0)
-        ).tile_table is None
+    worlds = 8 if sharded else 3
+    mesh = make_mesh(8, particle_axis=1) if sharded else None
+    cfg = _base_cfg(n_particles=8, resample_neff_frac=0.5)
+    st = gs.GridSlamState.init(cfg, (worlds,))
+    per_world = [gs.GridSlamState.init(cfg) for _ in range(worlds)]
+    upd = jax.jit(lambda s, sc, od, k: gs.update(s, sc, od, k, cfg))
+    fleet = jax.jit(lambda s, sc, od, k: gs.update_fleet(s, sc, od, k, cfg,
+                                                          mesh=mesh))
+    for step in range(2):
+        scan, odo, keys = _fleet_inputs(53, worlds, step)
+        st, outs = fleet(st, scan, odo, keys)
+        for i in range(worlds):
+            per_world[i], out_i = upd(
+                per_world[i], jax.tree.map(lambda x: x[i], scan),
+                jax.tree.map(lambda x: x[i], odo), keys[i])
+            np.testing.assert_allclose(np.asarray(st.poses[i]),
+                                       np.asarray(per_world[i].poses),
+                                       atol=1e-5)
+            np.testing.assert_allclose(float(outs.n_eff[i]),
+                                       float(out_i.n_eff), rtol=1e-5)
+            assert bool(outs.resampled[i]) == bool(out_i.resampled)
+            d_f = np.asarray(st.grids[i], np.float32)
+            d_w = np.asarray(per_world[i].grids, np.float32)
+            assert float((d_f == d_w).mean()) > 0.9999
+            assert float(np.abs(d_f - d_w).max()) <= 0.25

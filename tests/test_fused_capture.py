@@ -58,7 +58,7 @@ def _run(cfg, frames):
         state, out = upd(state, scan, odo, k)
         track.append(np.asarray(out.pose))
     return np.stack(track), np.asarray(
-        gs.estimated_probability_grid(state, cfg), np.float32)
+        gs.estimated_probability_grid(state), np.float32)
 
 
 @pytest.mark.skipif(not DATA.exists(), reason="reference recordings absent")

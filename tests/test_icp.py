@@ -99,19 +99,20 @@ def test_chi_decreases():
     assert chi[-1] < chi[0] * 0.01
 
 
-def test_pallas_nn_matches_xla():
-    """The opt-in Pallas NN kernel returns identical correspondences
-    (interpret mode; compiled path exercised by bench experiments)."""
-    import jax
+@pytest.mark.parametrize("q_count", [360, 128, 3])
+def test_nearest_neighbors_matches_brute_force(q_count):
+    """The dense-matrix NN against a numpy brute-force argmin (float64
+    distances): the f32 product runs at HIGHEST precision, so only exact
+    near-ties could differ — none at these random clouds."""
     import numpy as np
 
-    from slamrs_tpu.ops.icp import (nearest_neighbors,
-                                    nearest_neighbors_fused)
+    from slamrs_tpu.ops.icp import nearest_neighbors
 
-    rng = np.random.default_rng(0)
-    p = jnp.asarray(rng.normal(size=(16, 360, 2)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(16, 360, 2)).astype(np.float32))
-    qc = jnp.asarray([360] * 14 + [128, 10], jnp.int32)
-    ref = jax.vmap(nearest_neighbors)(p, q, qc)
-    got = nearest_neighbors_fused(p, q, qc, interpret=True)
-    assert bool(jnp.all(ref == got))
+    rng = np.random.default_rng(q_count)
+    p = rng.normal(size=(4, 360, 2)).astype(np.float32)
+    q = rng.normal(size=(4, 360, 2)).astype(np.float32)
+    got = np.asarray(nearest_neighbors(jnp.asarray(p), jnp.asarray(q),
+                                       jnp.int32(q_count)))
+    d2 = ((p[:, :, None, :].astype(np.float64)
+           - q[:, None, :q_count, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(got, d2.argmin(-1))

@@ -127,7 +127,7 @@ def _rollout_longrun(integrate: str, T: int, p: int = 8, seed: int = 7,
         state, out = upd(state, scan, odo, k)
         best.append(np.asarray(out.pose))
         true.append(np.asarray(pose))
-    prob = gs.estimated_probability_grid(state, cfg)
+    prob = gs.estimated_probability_grid(state)
     return np.stack(best), np.stack(true), np.asarray(prob, np.float32)
 
 
@@ -214,7 +214,7 @@ def test_longrun_neato_capture_fused_vs_dda():
             key, k = jax.random.split(key)
             state, out = upd(state, scan, k)
             best.append(np.asarray(out.pose))
-        prob = gs.estimated_probability_grid(state, cfg)
+        prob = gs.estimated_probability_grid(state)
         return np.stack(best), np.asarray(prob, np.float32)
 
     best_d, grid_d = run("dda")

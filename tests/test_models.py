@@ -253,11 +253,10 @@ def test_checkpoint_roundtrip_bfloat16():
 
 
 def test_long_run_stability_fused_bf16():
-    """2,000-update stability contract (CPU-sized): finite grids, sane
-    N_eff, bounded pose tracking.  The full-scale (1,024-particle)
-    version of this check runs on TPU; measured there: 2-4 cm final
-    error over 2,000 scans, grids finite (unbounded log-odds growth is
-    reference behavior — see ops/grid.py LOGODDS_CLAMP note)."""
+    """Stability contract (CPU-sized): finite grids, sane N_eff, bounded
+    pose tracking (unbounded log-odds growth is reference behavior — see
+    ops/grid.py LOGODDS_CLAMP note).  chip_smoke.py checks the
+    full-scale (1,024-particle) rollout's tracking on the GPU."""
     import jax
     import jax.numpy as jnp
     import numpy as np

@@ -46,7 +46,7 @@ def _rollout(integrate: str, T=6, p=6):
         key, k = jax.random.split(key)
         state, out = gs.update(state, scan, odo, k, cfg)
         best.append(np.asarray(out.pose))
-    prob = gs.estimated_probability_grid(state, cfg)
+    prob = gs.estimated_probability_grid(state)
     return np.stack(best), np.asarray(prob)
 
 
