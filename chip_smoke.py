@@ -28,7 +28,6 @@ exits non-zero before any phase.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import faulthandler
 import json
 import subprocess
@@ -97,12 +96,11 @@ def _mem(compiled) -> str:
             f"temp={gib(m.temp_size_in_bytes)} GiB")
 
 
-def time_rollout(fw, n_ticks: int, reps: int = 3):
-    """Compile a jitted rollout_cadence of ``n_ticks`` ticks, then time
-    it.  Returns (compiled, outputs, (trace+lower s, compile s), median
-    us per tick).  A persistent-cache hit shows in the compile seconds;
-    tracing, lowering and the Triton kernel's own build are not
-    cached."""
+def compile_rollout(fw, n_ticks: int):
+    """Trace, lower and compile a jitted rollout_cadence of ``n_ticks``
+    ticks.  Returns (compiled, initial state, (trace+lower s, compile
+    s)).  A persistent-cache hit shows in the compile seconds; tracing,
+    lowering and the Triton kernel's own build are not cached."""
     import jax
 
     state = fw.init()
@@ -116,7 +114,16 @@ def time_rollout(fw, n_ticks: int, reps: int = 3):
     lowered = jax.jit(run).lower(state)
     t1 = time.perf_counter()
     compiled = lowered.compile()
-    compile_s = (t1 - t0, time.perf_counter() - t1)
+    return compiled, state, (t1 - t0, time.perf_counter() - t1)
+
+
+def time_rollout(fw, n_ticks: int, reps: int = 3):
+    """:func:`compile_rollout`, one warm-up run, then ``reps`` timed
+    runs.  Returns (compiled, outputs, (trace+lower s, compile s),
+    median us per tick)."""
+    import jax
+
+    compiled, state, compile_s = compile_rollout(fw, n_ticks)
     out = jax.block_until_ready(compiled(state))
     times = []
     for _ in range(reps):
@@ -137,6 +144,29 @@ def _check_rollout(name, outs, bound=RMSE_BOUND_M) -> float:
 
 
 # ---- (a) parity ---------------------------------------------------------
+
+def window_cells(spec, max_range_m: float, p: int) -> int:
+    """Cells an update covers: P disc-box windows."""
+    from slamrs_tpu.ops.fused import crop_window
+
+    wr, wc = crop_window(spec, max_range_m)
+    return p * wr * wc
+
+
+def grid_mismatch(a, b, rel: float = 1e-6) -> tuple[int, int]:
+    """(flips, cells that differ at all) between two grid sets, compared
+    at f32.  A flip differs by more than f32 rounding: more than ``rel``
+    times the larger magnitude, floored at 1.  Increments are O(1)
+    log-odds times a density >= 1, so a flipped bin or ISM band moves a
+    cell by >= 0.8, while the few-ulp noise of two separately compiled
+    graphs stays far below."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    neq = a != b
+    scale = np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
+    far = neq & (np.abs(a - b) > rel * scale)
+    return int(far.sum()), int(neq.sum())
+
 
 def _random_case(spec, p, dtype, seed=0):
     import jax.numpy as jnp
@@ -178,8 +208,8 @@ def phase_parity() -> None:
                 *a, spec, B, 1.0, dphi=dphi))
             g1, l1 = gpu(*args)
             g2, l2 = ref(*args)
-            flips, n_diff = fused.grid_mismatch(g1, g2)
-            cells = fused.window_cells(spec, 1.0, p)
+            flips, n_diff = grid_mismatch(g1, g2)
+            cells = window_cells(spec, 1.0, p)
             lik = float(jnp.abs(l1 - l2).max())
             log(f"parity {name} {jnp.dtype(dtype).name} "
                 f"[{fused.update_impl(jax.default_backend())} vs reference]:"
@@ -338,46 +368,34 @@ def phase_app() -> None:
 # ---- (d) larger states ---------------------------------------------------
 
 def phase_sizes() -> None:
+    """Each state completes a few scan frames.  No time is reported: a
+    35-tick window run once is not a steady state (bench.py times these
+    states over hundreds of ticks)."""
+    import jax
+
     for name, cfg in (
             ("0.02m 1024p 4x4m", _grid_config(resolution=0.02)),
             ("config2 100p 20x20m", _grid_config(particles=100,
                                                  width=20.0)),
             ("config3 1024p 50x50m", _grid_config(width=50.0))):
         n = 35  # five scan frames at the 0.2 s cadence
-        compiled, (final, outs), compile_s, us = time_rollout(fw=_fw(cfg),
-                                                              n_ticks=n,
-                                                              reps=1)
+        compiled, state, compile_s = compile_rollout(_fw(cfg), n)
+        final, outs = jax.block_until_ready(compiled(state))
         rmse = _check_rollout(name, outs)
         gb = final.grid.grids.size * final.grid.grids.dtype.itemsize / 1e9
-        log(f"size {name}: maps {gb:.3f} GB, {outs.n_eff.shape[0]} frames,"
-            f" trace+lower {compile_s[0]:.2f} s, compile {compile_s[1]:.2f}"
-            f" s, {us / 1e3:.4f} ms/tick, "
-            f"grid_pose RMSE {rmse:.4f} m, memory {_mem(compiled)}")
+        log(f"size {name}: maps {gb:.3f} GB, {outs.n_eff.shape[0]} frames "
+            f"completed, trace+lower {compile_s[0]:.2f} s, compile "
+            f"{compile_s[1]:.2f} s, grid_pose RMSE {rmse:.4f} m, memory "
+            f"{_mem(compiled)}")
 
 
 # ---- (e) the kernel against the plain version ------------------------------
 
-@contextlib.contextmanager
-def gpu_impl(name: str):
-    """Run the GPU with another fused-update formulation (measurement
-    only: the A/B below)."""
-    from slamrs_tpu.ops import fused
-
-    old = fused.GPU_IMPL
-    fused.GPU_IMPL = name
-    try:
-        yield
-    finally:
-        fused.GPU_IMPL = old
-
-
-def _update_loop_us(spec, p: int, n: int = 200) -> float:
+def _update_loop_us(update, spec, p: int, n: int = 200) -> float:
     """µs per fused update alone: ``n`` updates of one map set in one
     jitted loop (no per-call dispatch), likelihoods kept live."""
     import jax
     import jax.numpy as jnp
-
-    from slamrs_tpu.ops import fused
 
     g0, *rest = _random_case(spec, p, jnp.bfloat16)
     dphi = float(np.radians(1.0))
@@ -385,7 +403,7 @@ def _update_loop_us(spec, p: int, n: int = 200) -> float:
     def run(g):
         def body(_, carry):
             g_, acc = carry
-            g_, lik = fused.fused_update(g_, *rest, spec, B, 1.0, dphi=dphi)
+            g_, lik = update(g_, *rest, spec, B, 1.0, dphi=dphi)
             return g_, acc + jnp.sum(lik)
         return jax.lax.fori_loop(0, n, body, (g, jnp.float32(0.0)))
 
@@ -400,21 +418,27 @@ def _update_loop_us(spec, p: int, n: int = 200) -> float:
 
 
 def phase_kernel_timing() -> None:
+    """The kept kernel against the plain version: the update alone, and
+    the whole rollout with gridslam's ``fused_update`` patched to one
+    formulation for the measurement (order xla, triton, triton, xla)."""
+    from unittest import mock
+
     from slamrs_tpu.ops import fused
     from slamrs_tpu.ops.grid import GridSpec2D
 
-    if fused.GPU_IMPL != "triton":
+    if fused.update_impl("gpu") != "triton":
         return
     for name, res, n in (("headline", 0.05, 600), ("0.02m", 0.02, 300)):
         fw = _fw(_grid_config(resolution=res))
         us = {"xla": [], "triton": []}
         alone = {}
         for impl in ("xla", "triton", "triton", "xla"):
-            with gpu_impl(impl):
+            update = getattr(fused, f"fused_update_{impl}")
+            with mock.patch.object(fused, "fused_update", update):
                 _, _, _, t = time_rollout(fw, n, reps=5)
-                if impl not in alone:
-                    alone[impl] = _update_loop_us(
-                        GridSpec2D(-2.0, -2.0, 4.0, 4.0, res), 1024)
+            if impl not in alone:
+                alone[impl] = _update_loop_us(
+                    update, GridSpec2D(-2.0, -2.0, 4.0, 4.0, res), 1024)
             us[impl].append(t)
         tri, xla = np.mean(us["triton"]), np.mean(us["xla"])
         log(f"kernel-vs-plain {name}: update alone (200 in one jit, bf16, "

@@ -55,7 +55,6 @@ import math as pymath
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
@@ -67,16 +66,14 @@ Array = jnp.ndarray
 
 _TWO_PI = 2.0 * pymath.pi
 
-# The formulation the GPU runs (see update_impl).
-GPU_IMPL = "triton"
-
 
 def update_impl(platform: str) -> str:
     """The fused-update formulation for a JAX platform name: the one
-    place the choice is made.  ``"gpu"`` runs :data:`GPU_IMPL`, ``"cpu"``
-    the plain XLA version (the tests' path); any other platform raises."""
+    place the choice is made.  ``"gpu"`` runs the Triton kernel,
+    ``"cpu"`` the plain XLA version (the tests' path); any other
+    platform raises."""
     if platform == "gpu":
-        return GPU_IMPL
+        return "triton"
     if platform == "cpu":
         return "xla"
     raise ValueError(f"no fused grid update for platform {platform!r}")
@@ -194,9 +191,10 @@ def _cell_pass(win, rowf, colf, cx, cy, t, dphi, inv_dphi, lookup, *,
 
     ``t`` is ``(theta + angles0)/dphi - 0.5`` on the static pipeline
     (``binu`` = the static spacing) and ``theta + angles0`` on the traced
-    one.  ``lookup`` maps bin indices to beam-table row 0.  Same
-    arithmetic as :func:`fused_update_reference`, op for op; ``div`` and
-    ``sqrt`` let the Triton kernel ask for IEEE-rounded instructions.
+    one.  ``lookup`` maps bin indices to beam-table row 0.  The per-cell
+    model of :func:`fused_update_reference` (which folds the row offset
+    in another order); ``div`` and ``sqrt`` let the Triton kernel ask
+    for IEEE-rounded instructions.
     """
     dx = colf + (0.5 - cx)
     dy = rowf + (0.5 - cy)
@@ -455,34 +453,14 @@ def fused_update(grids: Array, poses: Array, angles0: Array,
     return fused_update_xla(*args)
 
 
-# ---- the oracle and the parity measure ---------------------------------
-
-
-def window_cells(spec: GridSpec2D, max_range_m: float, p: int) -> int:
-    """Cells an update covers: P disc-box windows."""
-    wr, wc = crop_window(spec, max_range_m)
-    return p * wr * wc
-
-
-def grid_mismatch(a: Array, b: Array, rel: float = 1e-6) -> tuple[int, int]:
-    """(flips, cells that differ at all) between two grid sets, compared
-    at f32.  A flip differs by more than f32 rounding: more than ``rel``
-    times the larger magnitude, floored at 1.  Increments are O(1)
-    log-odds times a density >= 1, so a flipped bin or ISM band moves a
-    cell by >= 0.8, while the few-ulp noise of two separately compiled
-    graphs stays far below."""
-    a = np.asarray(a, np.float32)
-    b = np.asarray(b, np.float32)
-    neq = a != b
-    scale = np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0)
-    far = neq & (np.abs(a - b) > rel * scale)
-    return int(far.sum()), int(neq.sum())
+# ---- the oracle ---------------------------------
 
 
 def fused_update_reference(grids, poses, angles0, distances, valid, present,
                            spec: GridSpec2D, num_beams: int,
                            max_range_m: float, dphi=None):
-    """Pure-jnp oracle (for tests): full-width row windows, 8-aligned."""
+    """Pure-jnp oracle (for tests): full-width row windows, 8-aligned,
+    and a 512-lane beam table (absent past the beams)."""
     p, rows, cols = grids.shape
     wr = window_rows(spec, max_range_m)
     wr = min(wr, rows - rows % 8 if rows % 8 else rows)
@@ -496,8 +474,7 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
     binu = static_dphi(dphi)
     dphi = jnp.asarray(dphi, jnp.float32)
     table = encode_beam_table(distances / spec.resolution, valid, present,
-                              angles0, dphi,
-                              length=table_len(num_beams, binu))
+                              angles0, dphi, length=max(512, num_beams + 1))
     half = TOLERANCE_CELLS / 2.0
     two_pi = 2.0 * pymath.pi
 
@@ -527,14 +504,13 @@ def fused_update_reference(grids, poses, angles0, distances, valid, present,
         factor = jnp.where(odds == 0.0, 1.0 / SENSOR_MAXDIST, mix)
         lik = jnp.sum(jnp.where(use, jnp.log(factor), 0.0))
 
-        # per-cell arithmetic in absolute grid coordinates
+        # folded-offset arithmetic (rounds a few ulp apart from the
+        # production _cell_pass; the parity bounds absorb it)
         wyl = jnp.arange(wr, dtype=jnp.float32)[:, None]
         wxl = jnp.arange(cols, dtype=jnp.float32)[None, :]
-        rowf = (rr0 + jnp.arange(wr, dtype=jnp.int32)).astype(
-            jnp.float32)[:, None]
         rr0f = rr0.astype(jnp.float32)
         dx = wxl + (0.5 - cx)
-        dy = rowf + (0.5 - cy)
+        dy = wyl + (rr0f + (0.5 - cy))
         r2 = dx * dx + dy * dy
         r = jnp.sqrt(r2)
         phi = jnp.arctan2(dy, dx)
